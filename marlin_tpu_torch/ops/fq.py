@@ -1,0 +1,65 @@
+"""BLS12-381 base-field (Fq) arithmetic on tensors.
+
+Elements are `[.., 24]` int32 tensors of 16-bit limbs in Montgomery form
+(R = 2^384).  The elementwise ops route by device like ops/fr.py; the
+curve layer (ops/curve_device.py) holds points in this layout.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..fields import active as P
+from . import bigint as bi
+from . import routing as _routing
+from .limbs import int_to_limbs, ints_to_limbs, limbs_to_ints
+
+# 24 x 16-bit limbs for BLS12-381's 381-bit Fq
+CTX = bi.ModCtx("fq", P.Q_MODULUS, P.FQ_BYTES * 8 // 16)
+L = CTX.L
+
+
+def add(a, b):
+    return _routing.binop("add", CTX, a, b)
+
+
+def sub(a, b):
+    return _routing.binop("sub", CTX, a, b)
+
+
+def mul(a, b):
+    return _routing.binop("mul", CTX, a, b)
+
+
+def inv(a):
+    return _routing.inv(CTX, a)
+
+
+def zeros(shape=(), device="cpu"):
+    return bi.zeros(CTX, shape, device)
+
+
+def ones(shape=(), device="cpu"):
+    return CTX.const("one", device).expand(*shape, L).clone()
+
+
+def from_ints(xs, device) -> torch.Tensor:
+    mont = [x * P.FQ_MONT_R % P.Q_MODULUS for x in xs]
+    limbs = ints_to_limbs(mont, L).reshape(len(mont), L)
+    return torch.as_tensor(limbs.astype(np.int32), device=device)
+
+
+def from_int(x: int, device) -> torch.Tensor:
+    limbs = int_to_limbs(x * P.FQ_MONT_R % P.Q_MODULUS, L)
+    return torch.as_tensor(limbs.astype(np.int32), device=device)
+
+
+def to_ints(arr) -> list[int]:
+    rinv = pow(P.FQ_MONT_R, -1, P.Q_MODULUS)
+    host = arr.detach().cpu().numpy() if isinstance(arr, torch.Tensor) else np.asarray(arr)
+    return [x * rinv % P.Q_MODULUS for x in limbs_to_ints(host)]
+
+
+def to_int(arr) -> int:
+    return to_ints(arr.reshape(1, -1))[0]
