@@ -9,7 +9,10 @@ Builds the bench circuit (`DummyCircuit`, 2^log2 constraints, SRS sized by
 * one prove with the phase spans of utils/profiling.py enabled (each span
   synchronizes the device, so a phase's seconds include its kernels);
 * one prove under `torch.profiler` (CPU and CUDA activity): device time by
-  kernel name, their sum, and the device's busy share of the wall time.
+  kernel name, their sum, and the device's busy share of the wall time;
+* each kernel alone at the main path's largest shape (2^16 Fr elements),
+  20 launches under the profiler: its device time per launch, free of the
+  wrapper's host overhead that CUDA-event timing of a Python call includes.
 
 Prints one JSON object (and writes it to `--out`).  Needs a CUDA device;
 imports nothing of JAX.
@@ -57,6 +60,56 @@ def _profiled_prove(torch, Marlin, pk, circ, rng) -> dict:
         "device_busy_share": busy_ms / (wall * 1e3) if kernels else None,
         "device_time_by_kernel": kernels[:40],
     }
+
+
+# kernel label -> substring of its symbol in the profiler's device events
+_KERNEL_SYMBOLS = {
+    "field_binop (fr mul)": "binop_kernel<8, 0>",
+    "field_inv (fr)": "inv_kernel<8>",
+    "ntt_block_stages": "block_stages_kernel",
+    "ntt_cross_stage": "cross_stage_kernel",
+}
+
+
+def _kernel_device_times(torch, reps: int = 20) -> dict:
+    """Device microseconds per launch of each kernel at 2^16 Fr elements."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import random_elements
+    from marlin_tpu_torch.ops import bigint as bi
+    from marlin_tpu_torch.ops import fr, ntt
+
+    rng = np.random.default_rng(3)
+    n = 1 << 16
+    dev = torch.device("cuda")
+    a = torch.as_tensor(random_elements(np, rng, fr.CTX, n), device=dev)
+    b = torch.as_tensor(random_elements(np, rng, fr.CTX, n), device=dev)
+    _rev, tw = ntt._plan_tensors(n, False, dev)
+    x = a.clone()
+    calls = {
+        "field_binop (fr mul)": lambda: bi.binop_kernel("mul", fr.CTX, a, b),
+        "field_inv (fr)": lambda: bi.inv_kernel(fr.CTX, a),
+        "ntt_block_stages": lambda: ntt.block_stages_kernel(x, tw, ntt.BLOCK_LOG2),
+        "ntt_cross_stage": lambda: ntt.cross_stage_kernel(x, tw, 15),
+    }
+    out = {}
+    for label, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us, count = 0.0, 0
+        for ev in prof.key_averages():
+            if getattr(ev, "device_type", None) == DeviceType.CUDA and _KERNEL_SYMBOLS[label] in ev.key:
+                total_us += getattr(ev, "self_device_time_total", 0) or 0
+                count += ev.count
+        out[label] = {"device_us_per_launch": total_us / count if count else None,
+                      "launches": count}
+    return out
 
 
 def main() -> int:
@@ -112,6 +165,7 @@ def main() -> int:
 
     try:
         rec.update(_profiled_prove(torch, Marlin, pk, circ, rng))
+        rec["kernel_device_times_2_16"] = _kernel_device_times(torch)
     except Exception as e:  # the sandboxed card may refuse CUPTI tracing
         rec["profiler_error"] = f"{type(e).__name__}: {e}"
 
