@@ -206,15 +206,24 @@ def sub_mod(ctx: ModCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where(neg[..., None], plus_n, d).to(LIMB_DTYPE)
 
 
-def inv_mod(ctx: ModCtx, x: torch.Tensor) -> torch.Tensor:
-    """Plain Fermat inversion x^(N-2) (Montgomery in/out) by left-to-right
-    square-and-multiply over the bits of N-2; 0 maps to 0."""
+def neg_mod(ctx: ModCtx, a: torch.Tensor) -> torch.Tensor:
+    return sub_mod(ctx, torch.zeros_like(a), a)
+
+
+def pow_const(ctx: ModCtx, x: torch.Tensor, exp_bits) -> torch.Tensor:
+    """Plain x^e (Montgomery in/out) for a static exponent given as MSB-first
+    bits, by left-to-right square-and-multiply."""
     acc = ctx.const("one", x.device).expand_as(x)
-    for bit in ctx.inv_exp_bits.tolist():
+    for bit in np.asarray(exp_bits).tolist():
         acc = mont_mul(ctx, acc, acc)
         if bit:
             acc = mont_mul(ctx, acc, x)
     return acc.contiguous()
+
+
+def inv_mod(ctx: ModCtx, x: torch.Tensor) -> torch.Tensor:
+    """Plain Fermat inversion x^(N-2) (Montgomery in/out); 0 maps to 0."""
+    return pow_const(ctx, x, ctx.inv_exp_bits)
 
 
 # --------------------------------------------------------------------------

@@ -149,6 +149,19 @@ def test_binops_match_pallas_interpret_tile(case):
         assert _same(got, ref[("pallas", field, op)]), (field, op)
 
 
+@pytest.mark.parametrize("field", ["fr", "fq"])
+def test_neg_and_pow_const_match_host(field):
+    mod = FIELDS[field]
+    ctx = mod.CTX
+    N = ctx.modulus
+    xs = _values(N, 40, 11)
+    x = mod.from_ints(xs, "cpu")
+    assert mod.to_ints(bi.neg_mod(ctx, x)) == [(-v) % N for v in xs]
+    e = 0xD201000000010001
+    bits = [int(c) for c in bin(e)[2:]]
+    assert mod.to_ints(bi.pow_const(ctx, x, bits)) == [pow(v, e, N) for v in xs]
+
+
 def test_reduce_wide_and_modsum_match_host():
     rng = np.random.default_rng(5)
     wide = torch.as_tensor(rng.integers(0, 1 << 40, size=(64, 20)), dtype=torch.int64)
