@@ -37,8 +37,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks used for bounds (on-chip-measurement guide, NVIDIA data
-# sheet): HBM bandwidth, and the 67 T/s float32 rate outside the tensor
+# H100 SXM peaks used for bounds (NVIDIA data sheet): HBM bandwidth, and the 67 T/s float32 rate outside the tensor
 # cores, taken as the ceiling for 32-bit integer multiplies (a lower bound on
 # the time; the card's integer multiply rate is below it).
 PEAK_BYTES_PER_S = 3.35e12

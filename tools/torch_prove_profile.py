@@ -166,7 +166,7 @@ def main() -> int:
     try:
         rec.update(_profiled_prove(torch, Marlin, pk, circ, rng))
         rec["kernel_device_times_2_16"] = _kernel_device_times(torch)
-    except Exception as e:  # the sandboxed card may refuse CUPTI tracing
+    except Exception as e:  # CUPTI tracing may be unavailable on the host
         rec["profiler_error"] = f"{type(e).__name__}: {e}"
 
     public = [a * b % P.R_MODULUS]
