@@ -8,16 +8,25 @@ Phases, each printing one line of JSON:
 1. device  — the card's name, count and `nvidia-smi` name/power limit;
 2. build   — compile the CUDA kernels (marlin_tpu_torch/csrc) from source;
 3. kernels — every kernel against its plain PyTorch version on the card,
-   bit for bit, at the main path's shapes, with edge inputs 0, 1, N-1; each
-   timed with CUDA events beside its plain version;
+   bit for bit, at the main path's shapes, with edge inputs (0, 1, N-1;
+   identity points, P + P, P + (-P); a fold that meets P == Q); each timed
+   with CUDA events beside its plain version;
 4. small   — a one-constraint circuit (SRS 32/32/96) proved under
    `test_rng()` on the CPU (plain versions) and on the card: equal proof
    bytes, the card's proof verifies, a wrong input and a flipped byte are
    rejected;
-5. main    — the 2^14-constraint MarlinKZG10 prove over BLS12-381
+5. medium  — `DummyCircuit` at 2^11 constraints (an SRS of 8192 powers, so
+   every commit takes the card's table MSM) proved on the CPU and on the
+   card: equal proof bytes, and the bucket fold launched;
+6. main    — the 2^14-constraint MarlinKZG10 prove over BLS12-381
    (`DummyCircuit`, SRS sized by `ahp.max_degree(n, n, 3n)`): setup, index,
    prove, verify, with phase and round seconds and each kernel's launch
-   count, all of which must be above 0; the proof must verify and be 855 B.
+   count, all of which must be above 0; the proof must verify and be 855 B;
+   the prove reruns no MSM and calls no host MSM;
+7. msm     — the 2^14 prove's own MSM job list (offsets and sizes) with
+   seeded random scalars through the card's commit path, each result equal
+   to the native host MSM; then a job of one repeated scalar, whose flag
+   must fire and whose exact rerun must equal the host MSM.
 
 Then the kernel table, the card's name and power limit, and, as the last
 line, `{"ok": true, "device": {...}}`.  Any failure exits nonzero before
@@ -28,6 +37,8 @@ imports nothing of JAX.  `--out` also writes every phase's record to PATH.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
 import statistics
@@ -50,6 +61,12 @@ FQ_N = 1 << 14
 MONT_N = 4096
 NTT_SHAPES = ((1 << 14,), (1 << 16,), (4, 1 << 16))
 NTT_CROSS_STAGE = 15
+# kernel 4 at the table build's width; kernel 5 at the 2^14 prove's largest
+# fold: round 3's three jobs of 2^16 - 1 scalars (offsets 0, 1, 0)
+CURVE_N = 1 << 16
+FOLD_JOBS = ((0, (1 << 16) - 1), (1, (1 << 16) - 1), (0, (1 << 16) - 1))
+MEDIUM_LOG2 = 11
+REPEATED_N = 1 << 14  # points of the msm phase's repeated-scalar job
 DEV = "cuda"
 
 RECORDS: list = []
@@ -106,6 +123,10 @@ def bound(nbytes: float, ops: float) -> tuple:
 def mont_mul_ops(nl: int) -> int:
     """32-bit multiplies in one CIOS product over nl limbs."""
     return 2 * nl * nl + nl
+
+
+FQ_BYTES = 96  # one Fq element in the int32 limb layout (24 words)
+FQ_MUL_OPS = mont_mul_ops(12)
 
 
 # --------------------------------------------------------------------------
@@ -245,7 +266,134 @@ def phase_kernels(torch, np) -> dict:
     torch.cuda.synchronize()
     for name, r in results.items():
         require(r["max_abs_err"] == 0, f"{name} disagrees with its plain version: {r}")
+    results.update(phase_curve_kernels(torch, np))
     cuda.reset_launches()
+    return results
+
+
+def curve_points(np, n: int, seed: int) -> list:
+    """n affine multiples of the generator by seeded nonzero scalars."""
+    from marlin_tpu_torch.fields import bls12_381 as P
+    from marlin_tpu_torch.fields import host_curve as hc
+
+    rng = np.random.default_rng(seed)
+    ks = [int.from_bytes(rng.bytes(40), "little") % (P.R_MODULUS - 1) + 1 for _ in range(n)]
+    return hc.g1_fixed_base_powers(hc.G1_GEN, ks)
+
+
+def fold_layout(torch, table, jobs, seed: int):
+    """Lane-major merged layouts [J·nb, cap] of the table MSM for jobs of
+    (offset, size) with seeded random scalars, padded as msm_fixed_many
+    pads them (all sizes must pad to one group)."""
+    from marlin_tpu_torch.ops import msm
+    from marlin_tpu_torch.utils.rand import ZkRng
+
+    dev = table.xy.device
+    n_j = -(-max(n for _, n in jobs) // msm._FIXED_QUANT) * msm._FIXED_QUANT
+    scal = torch.zeros((len(jobs), n_j, 16), dtype=torch.int32, device=dev)
+    for j, (_, n) in enumerate(jobs):
+        limbs = ZkRng(seed + j).rand_fr_limbs(n).astype("int32")
+        scal[j, :n] = torch.as_tensor(limbs, device=dev)
+    bucket, enc, _, _ = msm._job_digits(table, scal, [off for off, _ in jobs])
+    nb = (1 << (table.c - 1)) + 1
+    cap = msm._merged_cap(n_j, table.c, table.num_windows)
+    layouts, _ = msm._merged_layouts_batched(bucket, enc, nb, cap)
+    return layouts.reshape(len(jobs) * nb, cap)
+
+
+def phase_curve_kernels(torch, np) -> dict:
+    """Kernels 4 and 5 against their plain versions at the main path's shapes."""
+    from marlin_tpu_torch.fields import host_curve as hc
+    from marlin_tpu_torch.ops import curve, fq, msm
+    from marlin_tpu_torch.ops import curve_device as cd
+
+    dev = torch.device(DEV)
+    results = {}
+
+    def err(ks, ps) -> int:
+        return max(int((k.to(torch.int64) - p.to(torch.int64)).abs().max().item()) for k, p in zip(ks, ps))
+
+    pts = curve_points(np, CURVE_N, 5)
+    # edge cases: identities on either side, P + P, P + (-P)
+    a, b = list(pts), pts[1:] + pts[:1]
+    a[0], b[1], b[2], a[3], b[3] = None, None, a[2], a[4], hc.g1_neg(a[4])
+    A, B = cd.from_affine_ints(a, dev), cd.from_affine_ints(b, dev)
+    S = curve.add_kernel(A, B)
+    e_add = err(S, curve.add_plain(A, B))
+    torch.cuda.synchronize()
+    require(cd.to_affine_ints(tuple(c[:8] for c in S)) == [hc.g1_add(x, y) for x, y in zip(a[:8], b[:8])],
+            "g1_add: affine sums differ from the host's")
+    # Jacobian operands (Z != 1): the timed shapes
+    e_add = max(e_add, err(curve.add_kernel(S, B), curve.add_plain(S, B)))
+    e_dbl = max(err(curve.double_kernel(S), curve.double_plain(S)),
+                err(curve.double_kernel(A), curve.double_plain(A)))
+    n = CURVE_N
+    b_ms, b_by = bound(9 * n * FQ_BYTES, n * 16 * FQ_MUL_OPS)
+    results["g1_add"] = {
+        "route": "cuda", "source": "marlin_tpu_torch/csrc/curve.cu",
+        "replaces": "marlin_tpu/ops/pallas/curve.py:201",
+        "max_abs_err": e_add, "shape": f"[{n}] Jacobian + Jacobian",
+        "ms": time_ms(torch, lambda: curve.add_kernel(S, B)),
+        "plain_ms": time_ms(torch, lambda: curve.add_plain(S, B), reps=3, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    }
+    b_ms, b_by = bound(6 * n * FQ_BYTES, n * 7 * FQ_MUL_OPS)
+    results["g1_double"] = {
+        "route": "cuda", "source": "marlin_tpu_torch/csrc/curve.cu",
+        "replaces": "marlin_tpu/ops/pallas/curve.py:201",
+        "max_abs_err": e_dbl, "shape": f"[{n}] Jacobian",
+        "ms": time_ms(torch, lambda: curve.double_kernel(S)),
+        "plain_ms": time_ms(torch, lambda: curve.double_plain(S), reps=3, warmup=1),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    }
+
+    # kernel 5: the table of these points at the 2^14 prove's c, its largest fold
+    c = msm._fixed_c(n)
+    table = msm.build_fixed_table(cd.from_affine_ints(pts, dev), c)
+    W = table.num_windows
+    rows = [0, n + 7, (W - 1) * n + 9]
+    x, y = curve.unpack_xy_rows(table.xy[rows])
+    got = cd.to_affine_ints_host((x, y, fq.ones((3,), dev)))
+    require(got == [hc.g1_mul(pts[r % n], 1 << (c * (r // n))) for r in rows],
+            "build_fixed_table: rows differ from the host's 2^(c w) P")
+    layout = fold_layout(torch, table, FOLD_JOBS, 11)
+    checks = []
+    e_fold = 0
+    for exact in (False, True):
+        kp, kf = curve.bucket_fold_kernel(table.xy, layout, exact)
+        pp, pf = curve.bucket_fold_plain(table.xy, layout, exact)
+        e = max(err(kp, pp), abs(int(kf) - int(pf)))
+        checks.append({"exact": exact, "lanes": layout.shape[0], "cap": layout.shape[1],
+                       "flags": int(kf), "max_abs_err": e})
+        e_fold = max(e_fold, e)
+    # a lane whose sub-row meets P == Q: the fast fold flags it, the exact one sums it
+    small = torch.zeros((4, 3 * curve.FOLD_SUBROWS), dtype=torch.int32, device=dev)
+    small[:, :40] = torch.arange(1, 41, device=dev, dtype=torch.int32)
+    small[2, 5] = small[2, 5 + curve.FOLD_SUBROWS] = -17
+    for exact in (False, True):
+        kp, kf = curve.bucket_fold_kernel(table.xy, small, exact)
+        pp, pf = curve.bucket_fold_plain(table.xy, small, exact)
+        e = max(err(kp, pp), abs(int(kf) - int(pf)))
+        require(int(kf) == (0 if exact else 1), f"bucket_fold flag {int(kf)} with exact={exact}")
+        checks.append({"exact": exact, "lanes": 4, "cap": small.shape[1], "flags": int(kf),
+                       "max_abs_err": e})
+        e_fold = max(e_fold, e)
+    filled = int((layout != 0).sum())
+    lanes, cap = layout.shape
+    b_ms, b_by = bound(filled * FQ_BYTES + lanes * cap * 4 + lanes * (3 * FQ_BYTES + 4),
+                       filled * 11 * FQ_MUL_OPS)
+    results["bucket_fold"] = {
+        "route": "cuda", "source": "marlin_tpu_torch/csrc/curve.cu",
+        "replaces": "marlin_tpu/ops/pallas/curve.py:414",
+        "max_abs_err": e_fold, "checks": checks,
+        "shape": f"[{lanes}, {cap}] layout ({len(FOLD_JOBS)} jobs, c={c}), {filled} filled slots",
+        "ms": time_ms(torch, lambda: curve.bucket_fold_kernel(table.xy, layout)),
+        "plain_ms": time_ms(torch, lambda: curve.bucket_fold_plain(table.xy, layout), reps=1, warmup=0),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    }
+    torch.cuda.synchronize()
+    for name, r in results.items():
+        require(r["max_abs_err"] == 0, f"{name} disagrees with its plain version: {r}")
     return results
 
 
@@ -318,13 +466,49 @@ def phase_small() -> dict:
     return out
 
 
-def phase_main(torch) -> dict:
-    import contextlib
-    import io
-
+def phase_medium(torch) -> dict:
+    """DummyCircuit at 2^11 on the CPU and on the card: equal proof bytes,
+    with every commit on the card's table MSM (an SRS of 8192 powers)."""
     from marlin_tpu_torch.fields import bls12_381 as P
     from marlin_tpu_torch.ops import cuda
-    from marlin_tpu_torch.snark import ahp
+    from marlin_tpu_torch.snark import kzg
+    from marlin_tpu_torch.snark.marlin import Marlin
+    from marlin_tpu_torch.utils.rand import test_rng
+
+    n = 1 << MEDIUM_LOG2
+    out = {"num_constraints": n}
+    proofs = {}
+    for device in ("cpu", DEV):
+        rng = test_rng()
+        a, b = rng.rand_fr(), rng.rand_fr()
+        circ = DummyCircuit(a, b, num_variables=10, num_constraints=n)
+        if device == DEV:
+            torch.cuda.synchronize()
+            cuda.reset_launches()
+            reruns = kzg.STATS["exact_reruns"]
+        t = time.perf_counter()
+        srs = Marlin.universal_setup(n, n, 3 * n, rng, device=device)
+        pk, vk = Marlin.index(srs, circ, device=device)
+        proof = Marlin.prove(pk, circ, rng, device=device)
+        if device == DEV:
+            torch.cuda.synchronize()
+            out["launches"] = dict(cuda.LAUNCHES)
+            out["exact_reruns"] = kzg.STATS["exact_reruns"] - reruns
+            out["srs_powers"] = srs.powers_of_g[0].shape[0]
+        out[f"{device}_s"] = time.perf_counter() - t
+        proofs[device] = proof.to_bytes()
+    require(out["srs_powers"] > kzg._HOST_POWERS_MAX, "medium SRS small enough for the host branch")
+    require(proofs["cpu"] == proofs[DEV], "medium: card proof bytes differ from the CPU's")
+    require(out["launches"]["bucket_fold"] > 0, "medium: the bucket fold was not launched")
+    require(Marlin.verify(vk, [a * b % P.R_MODULUS], proof, rng, device=DEV), "medium proof does not verify")
+    out.update(proof_bytes=len(proofs[DEV]), bytes_equal=True, verifies=True)
+    return out
+
+
+def phase_main(torch) -> tuple:
+    from marlin_tpu_torch.fields import bls12_381 as P
+    from marlin_tpu_torch.ops import cuda, msm
+    from marlin_tpu_torch.snark import ahp, kzg
     from marlin_tpu_torch.snark.domains import compute_size_of_domain
     from marlin_tpu_torch.snark.marlin import Marlin
     from marlin_tpu_torch.utils import profiling
@@ -348,12 +532,32 @@ def phase_main(torch) -> dict:
     cuda.reset_launches()
     srs = timed("setup", lambda: Marlin.universal_setup(n, n, 3 * n, rng, device=DEV))
     pk, vk = timed("index", lambda: Marlin.index(srs, circ, device=DEV))
+    # the prove's MSM jobs, host MSM calls and exact reruns, counted around it
+    jobs, host_calls = [], [0]
+    run_jobs, host_msm = kzg._run_msm_jobs, msm._host_msm
+
+    def recording_run(ck, js):
+        jobs.extend((off, int(scal.shape[0])) for off, scal in js)
+        return run_jobs(ck, js)
+
+    def counting_host_msm(*args):
+        host_calls[0] += 1
+        return host_msm(*args)
+
+    before = dict(cuda.LAUNCHES)
+    reruns = kzg.STATS["exact_reruns"]
+    kzg._run_msm_jobs, msm._host_msm = recording_run, counting_host_msm
     profiling.enable(True)
     profiling.collect()
-    with contextlib.redirect_stdout(io.StringIO()):
-        proof = timed("prove", lambda: Marlin.prove(pk, circ, rng, device=DEV))
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            proof = timed("prove", lambda: Marlin.prove(pk, circ, rng, device=DEV))
+    finally:
+        kzg._run_msm_jobs, msm._host_msm = run_jobs, host_msm
     spans = profiling.collect()
     profiling.enable(False)
+    prove_launches = {k: v - before[k] for k, v in cuda.LAUNCHES.items()}
+    prove_reruns = kzg.STATS["exact_reruns"] - reruns
     ok = timed("verify", lambda: Marlin.verify(vk, public, proof, rng, device=DEV))
     launches = dict(cuda.LAUNCHES)
     binop_by_op = {f"{f}.{k}": v for (f, k), v in sorted(cuda.BINOP_LAUNCHES.items())}
@@ -367,7 +571,11 @@ def phase_main(torch) -> dict:
         srs_max_degree=ahp.max_degree(n, n, 3 * n),
         rounds_s={s["name"]: s["seconds"] for s in spans if s["depth"] == 1},
         launches=launches,
+        prove_launches=prove_launches,
         binop_launches=binop_by_op,
+        prove_msm_jobs=jobs,
+        prove_exact_reruns=prove_reruns,
+        prove_host_msm_calls=host_calls[0],
         proof_bytes=proof.serialized_size(),
         verifies=bool(ok),
     )
@@ -379,7 +587,47 @@ def phase_main(torch) -> dict:
     require(rec["proof_bytes"] == 855, f"proof is {rec['proof_bytes']} B, expected 855")
     for k, v in launches.items():
         require(v > 0, f"kernel {k} was not launched on the main path")
-    return rec
+    require(prove_reruns == 0, f"the 2^14 prove reran {prove_reruns} MSM batches")
+    require(host_calls[0] == 0, f"the 2^14 prove called the host MSM {host_calls[0]} times")
+    return rec, pk.committer_key
+
+
+def phase_msm(torch, np, ck, jobs) -> dict:
+    """The prove's job list with seeded scalars through the card's commit
+    path, against the native host MSM; then a repeated-scalar job."""
+    from marlin_tpu_torch.fields import host_curve as hc
+    from marlin_tpu_torch.ops import curve_device as cd
+    from marlin_tpu_torch.ops import fr
+    from marlin_tpu_torch.ops.limbs import limbs_to_ints
+    from marlin_tpu_torch.snark import kzg
+    from marlin_tpu_torch.utils.rand import ZkRng
+
+    powers = cd.to_affine_ints_host(ck.pp.powers_of_g)
+    limbs = [ZkRng(100 + j).rand_fr_limbs(n) for j, (_, n) in enumerate(jobs)]
+    dev_jobs = [(off, fr.from_canonical_limbs(l, DEV)) for (off, _), l in zip(jobs, limbs)]
+    reruns = kzg.STATS["exact_reruns"]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    got = kzg._run_msm_jobs(ck, dev_jobs)
+    card_s = time.perf_counter() - t
+    require(kzg.STATS["exact_reruns"] == reruns, "random scalars fired a fold flag")
+    t = time.perf_counter()
+    want = [hc.g1_msm(powers[off : off + n], limbs_to_ints(l)) for (off, n), l in zip(jobs, limbs)]
+    host_s = time.perf_counter() - t
+    require(got == want, "a job of the prove's list differs from the host MSM")
+
+    # one scalar for all the points: every window's entries share a bucket,
+    # which overflows its capacity; the rerun must be exact
+    rep = np.repeat(ZkRng(7).rand_fr_limbs(1), REPEATED_N, axis=0)
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        got_rep = kzg._run_msm_jobs(ck, [(0, fr.from_canonical_limbs(rep, DEV))])
+    fired = kzg.STATS["exact_reruns"] - reruns
+    require(fired == 1, f"the repeated-scalar job reran {fired} times, expected once")
+    require(got_rep == [hc.g1_msm(powers[:REPEATED_N], limbs_to_ints(rep))],
+            "the exact rerun differs from the host MSM")
+    return {"jobs": [list(j) for j in jobs], "card_s": card_s, "host_s": host_s,
+            "equal": True, "repeated_scalar": {"n": REPEATED_N, "reruns": fired, "equal": True,
+                                               "printed": printed.getvalue().strip()}}
 
 
 def main() -> int:
@@ -420,9 +668,15 @@ def main() -> int:
         phase = "small"
         emit({"phase": "small", **phase_small()})
 
+        phase = "medium"
+        emit({"phase": "medium", **phase_medium(torch)})
+
         phase = "main"
-        main_rec = phase_main(torch)
+        main_rec, ck = phase_main(torch)
         emit({"phase": "main", **main_rec})
+
+        phase = "msm"
+        emit({"phase": "msm", **phase_msm(torch, np, ck, main_rec["prove_msm_jobs"])})
     except Exception as e:  # every phase failure ends the run without a result
         import traceback
 

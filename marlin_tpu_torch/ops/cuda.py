@@ -23,7 +23,7 @@ import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
-_SOURCES = ("field.cu", "ntt.cu")
+_SOURCES = ("field.cu", "ntt.cu", "curve.cu")
 _HEADERS = ("mont.cuh",)
 _BUILD_DIR = os.path.join(_PKG, "build")
 _SO = os.path.join(_BUILD_DIR, "libmarlin_cuda.so")
@@ -35,6 +35,9 @@ LAUNCHES: dict[str, int] = {
     "field_inv": 0,
     "ntt_block_stages": 0,
     "ntt_cross_stage": 0,
+    "g1_add": 0,
+    "g1_double": 0,
+    "bucket_fold": 0,
 }
 # the field binop's launches split by (field, op), e.g. ("fr", "mul")
 BINOP_LAUNCHES: dict[tuple, int] = {}
@@ -53,6 +56,12 @@ _SIGNATURES = {
     "marlin_ntt_block_stages": [_P, _LL, _I, _P, _P, _P],
     # (x, total, stage, twiddles, params, stream)
     "marlin_ntt_cross_stage": [_P, _LL, _I, _P, _P, _P],
+    # (x1, y1, z1, x2, y2, z2, ox, oy, oz, n, params, stream)
+    "marlin_g1_add": [_P] * 9 + [_LL, _P, _P],
+    # (x, y, z, ox, oy, oz, n, params, stream)
+    "marlin_g1_double": [_P] * 6 + [_LL, _P, _P],
+    # (exact, table, layout, lanes, cap, ox, oy, oz, flags, params, stream)
+    "marlin_bucket_fold": [_I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
 }
 
 

@@ -1,0 +1,312 @@
+"""BLS12-381 G1 group law on point batches: kernels 4 and 5.
+
+Port of `marlin_tpu/ops/pallas/curve.py`.  A point batch is a tuple
+(X, Y, Z) of `[.., 24]` int32 Fq Montgomery limb tensors, Jacobian,
+identity <=> Z == 0 (ops/curve_device.py).  Three functions, each as a
+kernel wrapper (csrc/curve.cu) and a plain PyTorch version, routed by the
+tensor's device alone (a CUDA tensor launches the kernel or raises, a CPU
+tensor takes the plain version):
+
+* `add`: the complete Jacobian add, add-2007-bl with its edge cases
+  (`_jac_add_planes`, curve.py:65-107);
+* `double`: dbl-2009-l, with Z3 = 0 where Y or Z is 0 (`_double_kernel`);
+* `bucket_fold`: the sums of the fixed-table MSM's buckets (`_fold_kernel`):
+  each bucket lane's slots folded with the mixed add (`_jac_madd_planes`,
+  or `_jac_madd_planes_fast`, which reports degeneracy instead of doubling),
+  in FOLD_SUBROWS interleaved partial sums that a roll-halving tree of
+  complete adds joins.
+
+The plain versions follow the TPU formulas product for product over the
+plain Fq ops of ops/bigint.py (all canonical, so the grouping of a chain of
+adds and subs does not change a residue); their products are stacked into
+one call per layer, as `marlin_tpu.ops.curve_device._add_xla` does.  The
+kernels equal them limb for limb.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import bigint as bi
+from . import cuda, fq
+
+# partial sums per bucket lane (csrc/curve.cu kSubRows: one warp per lane).
+# The Jacobian result of a fold depends on it; its affine result does not.
+FOLD_SUBROWS = 32
+
+_CTX = fq.CTX
+_L = fq.L
+
+
+def _mul(*pairs):
+    """One plain Montgomery product call for a layer of independent products."""
+    a = torch.stack([x for x, _ in pairs])
+    b = torch.stack([y for _, y in pairs])
+    return bi.mont_mul(_CTX, a, b).unbind(0)
+
+
+def _add(a, b):
+    return bi.add_mod(_CTX, a, b)
+
+
+def _sub(a, b):
+    return bi.sub_mod(_CTX, a, b)
+
+
+def _is_zero(a):
+    return (a == 0).all(-1)
+
+
+def _sel(cond, a, b):
+    return torch.where(cond[..., None], a, b)
+
+
+def _expand(coords):
+    shape = torch.broadcast_shapes(*(c.shape[:-1] for c in coords))
+    return [c.expand(*shape, _L) for c in coords]
+
+
+# --------------------------------------------------------------------------
+# plain versions
+
+
+def _double_raw(X, Y, Z):
+    """dbl-2009-l, a = 0 (curve.py:42-62), no identity select."""
+    A, B, YZ = _mul((X, X), (Y, Y), (Y, Z))
+    XB = _add(X, B)
+    C, t = _mul((B, B), (XB, XB))
+    tAC = _sub(_sub(t, A), C)
+    D = _add(tAC, tAC)
+    E = _add(_add(A, A), A)
+    (F,) = _mul((E, E))
+    X3 = _sub(F, _add(D, D))
+    C4 = _add(_add(C, C), _add(C, C))
+    C8 = _add(C4, C4)
+    (EDX,) = _mul((E, _sub(D, X3)))
+    Y3 = _sub(EDX, C8)
+    Z3 = _add(YZ, YZ)
+    return X3, Y3, Z3
+
+
+def double_plain(p):
+    """Plain twin of kernel 4's doubling (curve.py:165-170)."""
+    X, Y, Z = _expand(p)
+    X3, Y3, Z3 = _double_raw(X, Y, Z)
+    y_zero = _is_zero(Y) | _is_zero(Z)
+    return X3, Y3, _sel(y_zero, torch.zeros_like(Z3), Z3)
+
+
+def _select_edges(X3, Y3, Z3, p, q, use_dbl, p_inf, q_inf):
+    """The complete add's selects (curve.py:100-106); the doubling runs only
+    when some lane needs it, which leaves every selected limb the same."""
+    if bool(use_dbl.any()):
+        dX, dY, dZ = _double_raw(*p)
+        X3, Y3, Z3 = _sel(use_dbl, dX, X3), _sel(use_dbl, dY, Y3), _sel(use_dbl, dZ, Z3)
+    return tuple(
+        _sel(q_inf, p[i], _sel(p_inf, q[i], v)) for i, v in enumerate((X3, Y3, Z3))
+    )
+
+
+def add_plain(p, q):
+    """Plain twin of kernel 4's complete add (curve.py:65-107)."""
+    X1, Y1, Z1, X2, Y2, Z2 = _expand((*p, *q))
+    Z1Z1, Z2Z2 = _mul((Z1, Z1), (Z2, Z2))
+    U1, U2, A1, A2 = _mul((X1, Z2Z2), (X2, Z1Z1), (Y1, Z2), (Y2, Z1))
+    zsum = _add(Z1, Z2)
+    S1, S2, ZZ = _mul((A1, Z2Z2), (A2, Z1Z1), (zsum, zsum))
+    H = _sub(U2, U1)
+    HH = _add(H, H)
+    S2S1 = _sub(S2, S1)
+    r = _add(S2S1, S2S1)
+    I, rsq, Z3 = _mul((HH, HH), (r, r), (_sub(_sub(ZZ, Z1Z1), Z2Z2), H))
+    J, V = _mul((H, I), (U1, I))
+    X3 = _sub(_sub(rsq, J), _add(V, V))
+    S1J, rVX = _mul((S1, J), (r, _sub(V, X3)))
+    Y3 = _sub(rVX, _add(S1J, S1J))
+    p_inf, q_inf = _is_zero(Z1), _is_zero(Z2)
+    use_dbl = _is_zero(H) & _is_zero(S2S1) & ~p_inf & ~q_inf
+    return _select_edges(X3, Y3, Z3, (X1, Y1, Z1), (X2, Y2, Z2), use_dbl, p_inf, q_inf)
+
+
+def madd_plain(p, x2, y2, exact: bool):
+    """Jacobian p + affine (x2, y2, 1): `_jac_madd_planes` (exact) or
+    `_jac_madd_planes_fast`.  -> (point, degenerate [batch] bool): the fast
+    variant's result is not the sum where `degenerate` is set (P == Q)."""
+    X1, Y1, Z1 = p
+    (Z1Z1,) = _mul((Z1, Z1))
+    U2, A2 = _mul((x2, Z1Z1), (y2, Z1))
+    (S2,) = _mul((A2, Z1Z1))
+    H = _sub(U2, X1)
+    HH = _add(H, H)
+    S2S1 = _sub(S2, Y1)
+    r = _add(S2S1, S2S1)
+    I, rsq, Z3 = _mul((HH, HH), (r, r), (_add(Z1, Z1), H))
+    J, V = _mul((H, I), (X1, I))
+    X3 = _sub(_sub(rsq, J), _add(V, V))
+    S1J, rVX = _mul((Y1, J), (r, _sub(V, X3)))
+    Y3 = _sub(rVX, _add(S1J, S1J))
+    p_inf = _is_zero(Z1)
+    deg = _is_zero(H) & _is_zero(S2S1) & ~p_inf
+    one = _CTX.const("one", Z1.device).expand_as(Z1)
+    no = torch.zeros_like(p_inf)
+    if exact:
+        return _select_edges(X3, Y3, Z3, p, (x2, y2, one), deg, p_inf, no), no
+    return _select_edges(X3, Y3, Z3, p, (x2, y2, one), no, p_inf, no), deg
+
+
+def pack_points_xy(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """[.., 24] X and Y limbs -> [.., 24] packed rows: column p < 12 holds X
+    limbs (2p, 2p+1) as lo | hi << 16, columns 12.. the same for Y — each
+    coordinate as twelve 32-bit limbs, stored as int32 bit patterns (96 B
+    per row, half the gathered bytes of the limb layout)."""
+    w = torch.cat([x[..., 0::2], y[..., 0::2]], -1).to(torch.int64)
+    w = w | (torch.cat([x[..., 1::2], y[..., 1::2]], -1).to(torch.int64) << 16)
+    return (w - ((w >> 31) << 32)).to(torch.int32)
+
+
+def unpack_xy_rows(g: torch.Tensor) -> tuple:
+    """[.., 24] packed rows -> ([.., 24] X, [.., 24] Y) limbs (`_unpack_xy_rows`)."""
+    w = g.to(torch.int64) & 0xFFFFFFFF
+    limbs = torch.stack([w & 0xFFFF, w >> 16], -1).reshape(*g.shape[:-1], 2 * _L)
+    limbs = limbs.to(torch.int32)
+    return limbs[..., :_L], limbs[..., _L:]
+
+
+def _identity(shape, device):
+    zero = torch.zeros((*shape, _L), dtype=torch.int32, device=device)
+    return zero, _CTX.const("one", device).expand(*shape, _L).clone(), zero.clone()
+
+
+def bucket_fold_plain(table: torch.Tensor, layout: torch.Tensor, exact: bool = False):
+    """Plain twin of kernel 5: see `bucket_fold`."""
+    lanes, cap = layout.shape
+    R = FOLD_SUBROWS
+    steps = -(-cap // R)
+    lay = torch.nn.functional.pad(layout, (0, steps * R - cap)).reshape(lanes, steps, R)
+    acc = list(_identity((lanes, R), layout.device))
+    deg = torch.zeros((lanes, R), dtype=torch.bool, device=layout.device)
+    for t in range(steps):
+        e = lay[:, t]
+        idx = (e != 0).nonzero(as_tuple=True)
+        if idx[0].numel() == 0:
+            continue
+        ev = e[idx]
+        x2, y2 = unpack_xy_rows(table[ev.abs().to(torch.int64) - 1])
+        y2 = torch.where((ev < 0)[:, None], bi.neg_mod(_CTX, y2), y2)
+        out, d = madd_plain(tuple(a[idx] for a in acc), x2, y2, exact)
+        for a, o in zip(acc, out):
+            a[idx] = o
+        deg[idx] |= d
+    s = R // 2
+    while s >= 1:
+        out = add_plain(tuple(a[:, :s] for a in acc), tuple(a[:, s : 2 * s] for a in acc))
+        for a, o in zip(acc, out):
+            a[:, :s] = o
+        s //= 2
+    return tuple(a[:, 0].contiguous() for a in acc), deg.any(-1).sum()
+
+
+# --------------------------------------------------------------------------
+# kernel wrappers (csrc/curve.cu)
+
+
+def _operands(coords, name):
+    shape = torch.broadcast_shapes(*(c.shape[:-1] for c in coords))
+    out = [bi._kernel_operand(c, shape) for c in coords]
+    for i, t in enumerate(out):
+        cuda.require_cuda_field_tensor(t, f"{name} operand {i}", _L)
+        if t.device != out[0].device:
+            raise ValueError(f"{name}: operands on different devices")
+    return out, shape
+
+
+def add_kernel(p, q):
+    """Kernel 4: the complete add of broadcastable point batches."""
+    ops, shape = _operands((*p, *q), "g1_add")
+    out = [torch.empty((*shape, _L), dtype=torch.int32, device=ops[0].device) for _ in range(3)]
+    n = out[0].numel() // _L
+    if n == 0:
+        return tuple(out)
+    err = cuda.lib().marlin_g1_add(
+        *(t.data_ptr() for t in ops), *(t.data_ptr() for t in out), n,
+        _CTX.kernel_params.ctypes.data_as(ctypes.c_void_p), cuda.stream_handle(out[0]),
+    )
+    cuda.LAUNCHES["g1_add"] += 1
+    cuda.check(err, "g1_add")
+    return tuple(out)
+
+
+def double_kernel(p):
+    """Kernel 4: the doubling of a point batch."""
+    ops, shape = _operands(p, "g1_double")
+    out = [torch.empty((*shape, _L), dtype=torch.int32, device=ops[0].device) for _ in range(3)]
+    n = out[0].numel() // _L
+    if n == 0:
+        return tuple(out)
+    err = cuda.lib().marlin_g1_double(
+        *(t.data_ptr() for t in ops), *(t.data_ptr() for t in out), n,
+        _CTX.kernel_params.ctypes.data_as(ctypes.c_void_p), cuda.stream_handle(out[0]),
+    )
+    cuda.LAUNCHES["g1_double"] += 1
+    cuda.check(err, "g1_double")
+    return tuple(out)
+
+
+def bucket_fold_kernel(table: torch.Tensor, layout: torch.Tensor, exact: bool = False):
+    """Kernel 5: see `bucket_fold`."""
+    cuda.require_cuda_field_tensor(table, "bucket_fold table", _L)
+    if table.dim() != 2:
+        raise ValueError("bucket_fold: the table is [rows, 24] packed rows")
+    if not layout.is_cuda or layout.device != table.device:
+        raise ValueError("bucket_fold: the layout must be a CUDA tensor beside the table")
+    if layout.dtype != torch.int32 or layout.dim() != 2 or not layout.is_contiguous():
+        raise ValueError("bucket_fold: the layout is a contiguous [lanes, cap] int32 tensor")
+    lanes, cap = layout.shape
+    if lanes * cap and int(layout.abs().max()) > table.shape[0]:
+        raise ValueError("bucket_fold: a layout entry points past the table")
+    out = [torch.empty((lanes, _L), dtype=torch.int32, device=table.device) for _ in range(3)]
+    flags = torch.zeros(lanes, dtype=torch.int32, device=table.device)
+    if lanes == 0:
+        return tuple(out), flags.sum()
+    err = cuda.lib().marlin_bucket_fold(
+        int(exact), table.data_ptr(), layout.data_ptr(), lanes, cap,
+        *(t.data_ptr() for t in out), flags.data_ptr(),
+        _CTX.kernel_params.ctypes.data_as(ctypes.c_void_p), cuda.stream_handle(table),
+    )
+    cuda.LAUNCHES["bucket_fold"] += 1
+    cuda.check(err, "bucket_fold")
+    return tuple(out), flags.sum()
+
+
+# --------------------------------------------------------------------------
+# routed entry points
+
+
+def add(p, q):
+    """Complete Jacobian add of broadcastable point batches."""
+    return add_kernel(p, q) if p[0].is_cuda else add_plain(p, q)
+
+
+def double(p):
+    """Jacobian doubling of a point batch (identity stays identity)."""
+    return double_kernel(p) if p[0].is_cuda else double_plain(p)
+
+
+def bucket_fold(table: torch.Tensor, layout: torch.Tensor, exact: bool = False):
+    """Σ over each bucket lane's slots of signed table points.
+
+    table: [rows, 24] `pack_points_xy` rows of affine points.  layout:
+    [lanes, cap] int32, lane-major: entry (b, j) is slot j of bucket lane b —
+    0 = empty, +k = table row k-1, -k = its negation (G1 has prime order, so
+    y != 0 for every real point).  Sub-row r of a lane sums the slots
+    j = r mod FOLD_SUBROWS with the mixed add, from the identity; the partial
+    sums then join in a roll-halving tree of complete adds.  With
+    exact=False the mixed add has no doubling branch, and a lane where it
+    met P == Q counts in the returned flag.
+
+    -> ([lanes]-batch point of bucket sums, 0-d count of flagged lanes)."""
+    if table.is_cuda:
+        return bucket_fold_kernel(table, layout, exact)
+    return bucket_fold_plain(table, layout, exact)

@@ -1,11 +1,11 @@
 """BLS12-381 G1 point batches as tensors (Jacobian over Fq limbs).
 
-Port of the part of `marlin_tpu/ops/curve_device.py` that the host MSM
-route needs: the `Point` layout — a tuple (X, Y, Z) of `[.., 24]` Fq
-Montgomery limb tensors, identity <=> Z == 0 — and the conversions between
-it and affine int tuples.  The device group law (`add`, `double`,
-`scalar_mul_batch`, `tree_reduce_add`) comes with its kernels in a later
-slice of the port.
+Port of `marlin_tpu/ops/curve_device.py`.  A point batch is a tuple
+(X, Y, Z) of `[.., 24]` Fq Montgomery limb tensors, identity <=> Z == 0.
+`add` and `double` are kernel 4 on a CUDA tensor and its plain version on
+a CPU tensor (ops/curve.py); the field ops route the same way
+(ops/routing.py).  Every edge case is resolved per lane, so one launch
+serves a whole batch.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..fields import active as P
-from . import fq
+from . import curve, fq
 
 Point = tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (X, Y, Z) Jacobian
 
@@ -79,3 +79,85 @@ def identity(shape=(), device="cpu") -> Point:
 
 def gather(p: Point, idx: torch.Tensor) -> Point:
     return (p[0][idx], p[1][idx], p[2][idx])
+
+
+def is_identity(p: Point) -> torch.Tensor:
+    return (p[2] == 0).all(-1)
+
+
+def negate(p: Point) -> Point:
+    return (p[0], fq.neg(p[1]), p[2])
+
+
+def select_point(cond: torch.Tensor, a: Point, b: Point) -> Point:
+    return tuple(torch.where(cond[..., None], a[i], b[i]) for i in range(3))
+
+
+def add(p: Point, q: Point) -> Point:
+    """Complete Jacobian add (add-2007-bl with its edge cases), broadcasting."""
+    return curve.add(p, q)
+
+
+def double(p: Point) -> Point:
+    """Jacobian doubling, a = 0 (dbl-2009-l); Y = 0 or Z = 0 -> identity."""
+    return curve.double(p)
+
+
+def tree_reduce_add(p: Point) -> Point:
+    """Sum over the leading axis of a [n, ...] point batch -> [1, ...].
+
+    Fan-in-16 levels as in the JAX package: each level pads with the
+    identity to a multiple of 16 and folds the 16 columns in order, so the
+    Jacobian result is the reference's."""
+    FAN = 16
+    n = p[0].shape[0]
+    while n > 1:
+        pad = -n % FAN
+        if pad:
+            ident = identity((pad, *p[0].shape[1:-1]), p[0].device)
+            p = tuple(torch.cat([p[i], ident[i]]) for i in range(3))
+            n += pad
+        m = n // FAN
+        cols = tuple(c.reshape(m, FAN, *c.shape[1:]) for c in p)
+        acc = tuple(c[:, 0] for c in cols)
+        for j in range(1, FAN):
+            acc = add(acc, tuple(c[:, j] for c in cols))
+        p = acc
+        n = m
+    return p
+
+
+def normalize_batch(p: Point) -> Point:
+    """Jacobian -> affine form (Z in {0, 1}): one Fq inversion per point
+    (kernel 2 on the card; 0 maps to 0) and three products."""
+    X, Y, Z = p
+    zinv = fq.inv(Z)
+    zinv2 = fq.mul(zinv, zinv)
+    x = fq.mul(X, zinv2)
+    y = fq.mul(Y, fq.mul(zinv2, zinv))
+    inf = (Z == 0).all(-1, keepdim=True)
+    one = fq.ones(Z.shape[:-1], Z.device)
+    zero = torch.zeros_like(Z)
+    return (torch.where(inf, zero, x), torch.where(inf, one, y), torch.where(inf, zero, one))
+
+
+def scalar_mul_batch(points: Point, scalar_limbs: torch.Tensor, num_bits: int = 255) -> Point:
+    """Elementwise s_i * P_i (double-and-add, MSB first).
+
+    scalar_limbs: [..., 16] canonical (not Montgomery) base-2^16 Fr limbs."""
+    acc = identity(points[0].shape[:-1], points[0].device)
+    for i in range(num_bits):
+        k = num_bits - 1 - i
+        acc = double(acc)
+        added = add(acc, points)
+        bit = ((scalar_limbs[..., k // 16] >> (k % 16)) & 1) == 1
+        acc = select_point(bit, added, acc)
+    return acc
+
+
+def to_affine_ints(pt: Point) -> list:
+    """Point batch -> list of affine (x, y) tuples / None, normalized on the
+    point's device."""
+    x, y, _ = normalize_batch(pt)
+    inf = is_identity(pt).reshape(-1).tolist()
+    return [None if i else (a, b) for a, b, i in zip(fq.to_ints(x), fq.to_ints(y), inf)]

@@ -36,6 +36,10 @@ def inv(a):
     return _routing.inv(CTX, a)
 
 
+def neg(a):
+    return sub(torch.zeros_like(a), a)
+
+
 def zeros(shape=(), device="cpu"):
     return bi.zeros(CTX, shape, device)
 

@@ -1,22 +1,45 @@
-"""Multi-scalar multiplication: the host route.
+"""Multi-scalar multiplication: the fixed-base table MSM and the host route.
 
-Port of the `MARLIN_TPU_HOST_MSM=1` branches of `marlin_tpu/ops/msm.py`
-(`msm` at :1064, `msm_many` at :1104-1112): the points come back to the
-host as affine ints and the sum runs in the native C Pippenger
-(csrc/marlin_curve.c).  The JAX package documents this route as giving
-bit-identical proofs to its device MSM.  In this slice it is the port's
-only MSM, with no switch; a later slice replaces it on the card with the
-fixed-table MSM and its bucket-fold and Jacobian add/double kernels.
+Port of `marlin_tpu/ops/msm.py`: its fixed-base table path (:505-990), the
+route of every commit and opening MSM of the prover on an SRS on the card,
+and the `MARLIN_TPU_HOST_MSM=1` branches (`msm` at :1064, `msm_many` at
+:1104-1112), the route of an SRS on the CPU.
+
+The table path.  All of a prove's MSMs run over the fixed SRS powers, so
+the windows of a Pippenger collapse into ONE signed-digit window over a
+table of 2^(c·w)-scaled copies of the powers (`build_fixed_table`).  Every
+job of a round is cut into balanced signed digits, its (window, point)
+entries are sorted into buckets (`_merged_layouts_batched`), kernel 5 sums
+each bucket (ops/curve.py::bucket_fold), and two Hillis-Steele scans of
+kernel-4 adds turn the bucket sums S_b into Σ_b b·S_b.  The top window spans
+only the modulus's high bits and folds apart with its own narrow bucket
+space.  Jobs under 512 points, and tails of at most `_TAIL_MAX` points past
+a `_FIXED_QUANT` boundary, run through one shared double-and-add ladder.
+
+Correctness contract (msm.py:197-216): a bucket that overflows its
+capacity, and a fast mixed add that met P == Q, each leave a nonzero flag
+in `_FOLD_FLAGS`.  The caller reads the flags with its results
+(snark/kzg.py::_run_msm_jobs) and reruns the batch with exact=True, which
+takes the complete mixed add and raises every capacity to the largest
+bucket the layout pass found.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
+from ..fields import active as P
 from ..fields import host_curve as hc
 from ..fields import native_curve as nc
+from . import bigint as bi
+from . import curve
 from . import curve_device as cd
-from . import fr
+from . import fq, fr
+
+FR_BITS = P.FR_BITS
 
 
 def _host_msm(points: cd.Point, scalars_mont: torch.Tensor) -> cd.Point:
@@ -29,18 +52,362 @@ def _host_msm(points: cd.Point, scalars_mont: torch.Tensor) -> cd.Point:
 
 
 def msm(points: cd.Point, scalars_mont: torch.Tensor) -> cd.Point:
-    """Σ_i s_i P_i -> single Jacobian point (shape [1]).
+    """Σ_i s_i P_i -> single Jacobian point (shape [1]), on the host route.
 
     points: [n] Jacobian batch; scalars_mont: [n, 16] Fr Montgomery limbs."""
     return _host_msm(points, scalars_mont)
 
 
-def msm_many(powers: cd.Point, jobs: list) -> list:
+def msm_many(powers: cd.Point, jobs: list, exact: bool = False, table=None) -> list:
     """Several MSMs over slices of one point array.
 
     jobs: list of (offset, scalars_mont [n_j, 16]) — the points of job j are
-    powers[offset : offset+n_j]."""
+    powers[offset : offset+n_j].  With a FixedBaseTable (an SRS on the
+    card) the batch runs on the table path; without one (an SRS on the
+    CPU) each job runs on the host route."""
+    if table is not None:
+        return msm_fixed_many(table, jobs, exact=exact)
     return [
         _host_msm(tuple(powers[i][off : off + scal.shape[0]] for i in range(3)), scal)
         for off, scal in jobs
     ]
+
+
+# --------------------------------------------------------------------------
+# fold flags
+
+
+# Flags of the table path (0-d device tensors: degenerate fast madds plus
+# spilled bucket entries).  They queue here so that the hot path never waits
+# for the card; kzg._run_msm_jobs fetches them with its results.
+_FOLD_FLAGS: list = []
+
+
+def fold_flags_fired() -> bool:
+    """Drain the pending flags; True if any fired (one device-to-host copy)."""
+    flags = pending_fold_flags()
+    return bool(torch.stack(flags).any()) if flags else False
+
+
+def pending_fold_flags() -> list:
+    """The queued flag tensors, clearing the queue — for a caller that
+    copies them to the host together with its results."""
+    flags = list(_FOLD_FLAGS)
+    _FOLD_FLAGS.clear()
+    return flags
+
+
+# --------------------------------------------------------------------------
+# the fixed-base table
+
+
+class FixedBaseTable:
+    """table[w·N + i] = 2^(c·w)·P_i in affine form, as ONE [W·N, 24] array
+    of `curve.pack_points_xy` rows (X and Y as 32-bit limbs: 96 B a row)."""
+
+    def __init__(self, xy: torch.Tensor, c: int, num_windows: int, n_base: int):
+        self.xy = xy
+        self.c = c
+        self.num_windows = num_windows
+        self.n_base = n_base
+
+    def point_slice(self, start: int, stop: int) -> cd.Point:
+        """Affine-form (X, Y, Z=1) batch of the powers start..stop-1."""
+        x, y = curve.unpack_xy_rows(self.xy[start:stop])
+        return (x, y, fq.ones((stop - start,), self.xy.device))
+
+
+def _fixed_c(n_base: int) -> int:
+    """Signed-window width of the table path: 10 up to 2^17 powers, then
+    wider (the JAX package's measured choice, msm.py:539-561)."""
+    return min(13, max(10, 10 + (n_base.bit_length() - 17) * 3 // 2))
+
+
+def fixed_table_windows(c: int) -> int:
+    """Signed windows for the table path: c·W >= FR_BITS + 1 leaves the
+    balanced recoding's last carry a window to land in."""
+    return -(-(FR_BITS + 1) // c)
+
+
+def build_fixed_table(points: cd.Point, c: int) -> FixedBaseTable:
+    """The W blocks 2^(c·w)·P of the powers P (affine form, Z in {0, 1}).
+
+    The doubling chain runs in Jacobian coordinates and ONE normalization
+    over all blocks (one inversion launch) brings them to affine form: the
+    affine points are the JAX package's, which normalizes each block."""
+    n_base = points[0].shape[0]
+    num_windows = fixed_table_windows(c)
+    blocks = []
+    cur = points
+    for _ in range(1, num_windows):
+        for _ in range(c):
+            cur = cd.double(cur)
+        blocks.append(cur)
+    xy = [curve.pack_points_xy(points[0], points[1])]
+    if blocks:
+        x, y, _ = cd.normalize_batch(tuple(torch.cat([b[i] for b in blocks]) for i in range(3)))
+        xy.append(curve.pack_points_xy(x, y))
+    return FixedBaseTable(torch.cat(xy).contiguous(), c, num_windows, n_base)
+
+
+# --------------------------------------------------------------------------
+# digits and bucket layouts
+
+
+def _digits(scal16: torch.Tensor, c: int, w: int) -> torch.Tensor:
+    """Window-w radix-2^c digit (int64) of canonical [.., 16]-limb scalars."""
+    off = w * c
+    l, o = off // 16, off % 16
+    lo = scal16[..., l].to(torch.int64)
+    hi = scal16[..., l + 1].to(torch.int64) if l + 1 < scal16.shape[-1] else torch.zeros_like(lo)
+    return ((lo | (hi << 16)) >> o) & ((1 << c) - 1)
+
+
+def _signed_digits(scal16: torch.Tensor, c: int, num_windows: int) -> torch.Tensor:
+    """[W, ..] int32 balanced signed digits in [-(2^(c-1)-1), 2^(c-1)]."""
+    half, full = 1 << (c - 1), 1 << c
+    carry = torch.zeros(scal16.shape[:-1], dtype=torch.int64, device=scal16.device)
+    ds = []
+    for w in range(num_windows):
+        raw = _digits(scal16, c, w) + carry
+        carry = (raw > half).to(torch.int64)
+        ds.append(raw - carry * full)
+    return torch.stack(ds).to(torch.int32)
+
+
+def _sort_buckets(bucket: torch.Tensor, enc: torch.Tensor, nb: int):
+    """Stable per-window bucket sort of [J, Wm, n] entries -> (encodings in
+    bucket order [J·Wm, n], first entry of each bucket [J, Wm, nb], counts
+    [J, Wm, nb])."""
+    J, Wm, n = bucket.shape
+    flat = bucket.reshape(J * Wm, n)
+    b_sorted, order = torch.sort(flat, dim=1, stable=True)
+    e_sorted = torch.gather(enc.reshape(J * Wm, n), 1, order)
+    bounds = torch.arange(nb, dtype=b_sorted.dtype, device=flat.device).expand(J * Wm, nb)
+    starts = torch.searchsorted(b_sorted, bounds.contiguous(), side="left")
+    ends = torch.cat([starts[:, 1:], torch.full_like(starts[:, :1], n)], dim=1)
+    return e_sorted, starts.reshape(J, Wm, nb), (ends - starts).reshape(J, Wm, nb)
+
+
+def _stitch_layouts(e_sorted, starts, counts, cap: int):
+    """Merged lane-major layouts [J, nb, cap] (0 = empty, ±k = table row
+    k-1) and the spill count: slot j of bucket b holds the j-th entry of b
+    over windows 0, 1, ... in order.  Bucket 0 (digit 0) stays empty."""
+    J, Wm, nb = counts.shape
+    n = e_sorted.shape[1]
+    dev = counts.device
+    cnt = counts.transpose(1, 2)  # [J, nb, Wm]
+    incl = cnt.cumsum(-1)
+    total = incl[..., -1]  # [J, nb]
+    col = torch.arange(cap, device=dev)
+    w = torch.searchsorted(
+        incl.reshape(J * nb, Wm).contiguous(), col.expand(J * nb, cap).contiguous(), right=True
+    ).reshape(J, nb, cap).clamp(max=Wm - 1)
+    first = torch.gather(starts.transpose(1, 2), 2, w)
+    before = torch.gather(incl - cnt, 2, w)
+    pos = (first + col - before).clamp(0, n - 1)
+    row = w + (torch.arange(J, device=dev) * Wm)[:, None, None]
+    have = (col < total[..., None]) & (torch.arange(nb, device=dev) != 0)[None, :, None]
+    layouts = torch.where(have, e_sorted.reshape(-1)[row * n + pos], 0).to(torch.int32)
+    spill = (total[:, 1:] - cap).clamp(min=0).sum()
+    return layouts, spill
+
+
+def _merged_layouts_batched(bucket: torch.Tensor, enc: torch.Tensor, nb: int, cap: int):
+    """[J, Wm, n] bucket indices and ±encoded table indices -> (lane-major
+    layouts [J, nb, cap], spill count).  Port of msm.py:716: one batched
+    stable sort per (job, window) row, one batched bucket search, then each
+    bucket's slots stitched from its per-window segments."""
+    e_sorted, starts, counts = _sort_buckets(bucket, enc, nb)
+    return _stitch_layouts(e_sorted, starts, counts, cap)
+
+
+@functools.lru_cache(maxsize=None)
+def _top_digit_pmax(c: int, num_windows: int) -> tuple:
+    """(max bucket index, max single-digit probability) of the top-window
+    digit for scalars uniform below the modulus."""
+    r = P.R_MODULUS
+    s = c * (num_windows - 1)
+    hi = (r - 1) >> s
+    p_max = max(min(r, (b + 1) << s) - (b << s) for b in range(hi + 1)) / r
+    # +1: the signed recoding's carry out of window W-2
+    return hi + 1, p_max
+
+
+def _load_cap(lam: float) -> int:
+    """Bucket capacity for mean load lam: six sigmas of slack, in 8s."""
+    return int(np.ceil((lam + 6 * np.sqrt(lam) + 8) / 8.0)) * 8
+
+
+def _top_fold_shape(n_j: int, c: int, num_windows: int) -> tuple:
+    """(nb_top, cap_top) for the top-window fold of an n_j-point job."""
+    max_digit, p_max = _top_digit_pmax(c, num_windows)
+    return max_digit + 1, _load_cap(max(1.0, n_j * p_max))
+
+
+def _merged_cap(n_j: int, c: int, num_windows: int) -> int:
+    """Capacity of the merged window (windows 0..W-2) for n_j points."""
+    nb = (1 << (c - 1)) + 1
+    return _load_cap(max(1, (n_j * (num_windows - 1)) // (nb - 1)))
+
+
+# --------------------------------------------------------------------------
+# group sums
+
+
+def _hillis_scan_add(pts: cd.Point, reverse: bool) -> cd.Point:
+    """Inclusive point-add scan along axis 0 (Hillis-Steele, log n adds):
+    row i takes row i + 2^k (reverse) or i - 2^k, as msm.py:45 does."""
+    n = pts[0].shape[0]
+    for k in range(max((n - 1).bit_length(), 1)):
+        off = 1 << k
+        if off >= n:
+            break
+        if reverse:
+            head = cd.add(tuple(p[: n - off] for p in pts), tuple(p[off:] for p in pts))
+            pts = tuple(torch.cat([h, p[n - off :]]) for h, p in zip(head, pts))
+        else:
+            tail = cd.add(tuple(p[off:] for p in pts), tuple(p[: n - off] for p in pts))
+            pts = tuple(torch.cat([p[:off], t]) for t, p in zip(tail, pts))
+    return pts
+
+
+def _single_window_kernel(xy: torch.Tensor, layouts: torch.Tensor, exact: bool):
+    """Σ_b b·S_b of every job's window: the bucket sums S_b of kernel 5
+    over lane-major layouts [J, nb, cap], then two scans.  -> ([J] totals,
+    flag count)."""
+    J, nb, cap = layouts.shape
+    buckets, flag = curve.bucket_fold(xy, layouts.reshape(J * nb, cap), exact)
+    ident = cd.identity((1, J), xy.device)
+    # [nb, J]: bucket index leads so the scans run along axis 0; digit 0 adds nothing
+    buckets = tuple(
+        torch.cat([ident[i], b.reshape(J, nb, -1).transpose(0, 1)[1:]]) for i, b in enumerate(buckets)
+    )
+    suffix = _hillis_scan_add(buckets, reverse=True)  # S'_j = Σ_{b >= j} S_b
+    suffix = tuple(torch.cat([ident[i], s[1:]]) for i, s in enumerate(suffix))
+    totals = _hillis_scan_add(suffix, reverse=False)
+    return tuple(t[-1] for t in totals), flag
+
+
+def _job_digits(table: FixedBaseTable, scal16: torch.Tensor, offsets: list):
+    """Bucket indices and ±encoded table rows of J equal-size jobs.
+
+    scal16: [J, n, 16] canonical scalars.  -> (merged bucket [J, W-1, n],
+    merged encodings, top-window digits [J, 1, n], top encodings)."""
+    c, W, N = table.c, table.num_windows, table.n_base
+    J, n_j, _ = scal16.shape
+    dev = scal16.device
+    d = _signed_digits(scal16, c, W).transpose(0, 1)  # [J, W, n]
+    body, top = d[:, : W - 1], d[:, W - 1 :]
+    first = torch.as_tensor(offsets, dtype=torch.int32, device=dev)[:, None, None] + 1
+    idx = torch.arange(n_j, dtype=torch.int32, device=dev)[None, None, :]
+    tbl = torch.arange(W - 1, dtype=torch.int32, device=dev)[None, :, None] * N + first + idx
+    enc = torch.where(body < 0, -tbl, tbl)
+    # the top window's digits are never negative (raw <= 2^tb < 2^(c-1))
+    top_enc = ((W - 1) * N + first + idx).expand(J, 1, n_j)
+    return body.abs(), enc, top, top_enc
+
+
+def _window_sums(xy, bucket, enc, nb: int, cap: int, exact: bool):
+    """Layouts, fold and scans of one signed window -> ([J] totals, flags).
+    With exact=True the capacity rises to the largest bucket found."""
+    e_sorted, starts, counts = _sort_buckets(bucket, enc, nb)
+    if exact:
+        most = int(counts[:, :, 1:].sum(1).max())
+        cap = max(cap, -(-most // 8) * 8)
+    layouts, spill = _stitch_layouts(e_sorted, starts, counts, cap)
+    totals, flag = _single_window_kernel(xy, layouts, exact)
+    return totals, flag + spill
+
+
+def _fixed_group(table: FixedBaseTable, scal_cat: torch.Tensor, offsets: list, cap: int, exact: bool):
+    """One group of equal-size jobs (port of `_fixed_group_kernel`, msm.py:841):
+    digits -> layouts -> fold -> scans for the merged window and for the top
+    window.  -> ([J] totals, flag count)."""
+    c, W = table.c, table.num_windows
+    J = len(offsets)
+    scal16 = bi.from_mont(fr.CTX, scal_cat).reshape(J, -1, fr.L)
+    bucket, enc, top, top_enc = _job_digits(table, scal16, offsets)
+    totals, flag = _window_sums(table.xy, bucket, enc, (1 << (c - 1)) + 1, cap, exact)
+    nb_top, cap_top = _top_fold_shape(scal16.shape[1], c, W)
+    top_totals, top_flag = _window_sums(table.xy, top, top_enc, nb_top, cap_top, exact)
+    return cd.add(totals, top_totals), flag + top_flag
+
+
+# job-size quantum of the table path: scalar vectors zero-pad up to the next
+# multiple (zero digits fill no bucket), and a trailing <= _TAIL_MAX
+# coefficients past a quantum boundary split off into the ladder, so jobs of
+# nearly equal length share one group (one fold launch)
+_FIXED_QUANT = 4096
+_TAIL_MAX = 64
+# jobs below this many points take the ladder: their fold would be mostly padding
+_LADDER_MAX = 512
+
+
+def msm_fixed_many(table: FixedBaseTable, jobs: list, exact: bool = False) -> list:
+    """All (offset, scalars_mont) MSM jobs of a round over the fixed-base
+    table -> list of [1]-batch Jacobian points.  Each group of equal padded
+    size is one fold launch (up to 2^25 slots); small jobs and tails share
+    one ladder call.  Flags queue in `_FOLD_FLAGS` (module docstring)."""
+    c, W = table.c, table.num_windows
+    nb = (1 << (c - 1)) + 1
+    out = [None] * len(jobs)
+    ladder = []  # (job index, offset, scalars, is a tail)
+    groups = {}  # padded size -> [(job index, offset, padded scalars)]
+    for ji, (off, scal) in enumerate(jobs):
+        n_j = scal.shape[0]
+        if n_j < _LADDER_MAX:
+            ladder.append((ji, off, scal, False))
+            continue
+        head = (n_j // _FIXED_QUANT) * _FIXED_QUANT
+        if head >= _FIXED_QUANT and 0 < n_j - head <= _TAIL_MAX:
+            ladder.append((ji, off + head, scal[head:], True))
+            scal, n_j = scal[:head], head
+        pad = -n_j % _FIXED_QUANT
+        if pad:
+            scal = torch.nn.functional.pad(scal, (0, 0, 0, pad))
+        groups.setdefault(n_j + pad, []).append((ji, off, scal))
+
+    max_slots = 1 << 25
+    for n_j, group in sorted(groups.items()):
+        cap = _merged_cap(n_j, c, W)
+        gsz = max(1, min(len(group), max_slots // (nb * cap)))
+        for start in range(0, len(group), gsz):
+            chunk = group[start : start + gsz]
+            totals, flag = _fixed_group(
+                table, torch.cat([s for _, _, s in chunk]), [o for _, o, _ in chunk], cap, exact
+            )
+            _FOLD_FLAGS.append(flag)
+            for j, (ji, _, _) in enumerate(chunk):
+                out[ji] = tuple(t[j : j + 1] for t in totals)
+
+    if ladder:
+        sums = _shared_ladder(table, [(off, scal) for _, off, scal, _ in ladder])
+        for t, (ji, _, _, is_tail) in enumerate(ladder):
+            s = tuple(p[t : t + 1] for p in sums)
+            out[ji] = cd.add(out[ji], s) if is_tail else s
+    return out
+
+
+def _shared_ladder(table: FixedBaseTable, items: list) -> cd.Point:
+    """One ladder over several small (offset, scalars_mont) jobs, each padded
+    with identity points and zero scalars to the longest -> [T] sums."""
+    longest = max(s.shape[0] for _, s in items)
+    cols, scals = [], []
+    for off, scal in items:
+        n_t = scal.shape[0]
+        pts = table.point_slice(off, off + n_t)
+        ident = cd.identity((longest - n_t,), table.xy.device)
+        cols.append(tuple(torch.cat([pts[i], ident[i]]) for i in range(3)))
+        scals.append(torch.nn.functional.pad(scal, (0, 0, 0, longest - n_t)))
+    pts = tuple(torch.stack([c[i] for c in cols], dim=1) for i in range(3))  # [longest, T, 24]
+    sums = msm_ladder(pts, torch.stack(scals, dim=1))
+    return tuple(s[0] for s in sums)
+
+
+def msm_ladder(points: cd.Point, scalars_mont: torch.Tensor) -> cd.Point:
+    """Batched double-and-add, then a tree reduction over axis 0: [n, ...]
+    points and [n, ..., 16] scalars -> [1, ...] sums."""
+    scal = bi.from_mont(fr.CTX, scalars_mont)
+    muls = cd.scalar_mul_batch(points, scal, FR_BITS)
+    return cd.tree_reduce_add(muls)

@@ -17,9 +17,11 @@ Scheme math (MarlinKZG10 semantics):
     poly's C' term is shifted_comm - v·β^(D-b)g
 
 Port of `marlin_tpu/snark/kzg.py` (MarlinKZG10 only).  The witness
-polynomials are Fr tensors on the SRS's device; the MSMs take the host route
-of ops/msm.py; the verifier's handful of group ops and the pairings run on
-the host (the verifier is succinct, SURVEY.md §3.4).
+polynomials are Fr tensors on the SRS's device.  On an SRS on the card the
+MSMs run on the fixed-base table path of ops/msm.py (the table is built once
+per SRS); on an SRS on the CPU they take the host route.  The verifier's
+handful of group ops and the pairings run on the host (the verifier is
+succinct, SURVEY.md §3.4).
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from ..fields import active as P
 from ..fields import host_curve as hc
 from ..fields import host_pairing as hp
 from ..ops import curve_device as cd
-from ..ops import fr, msm, poly
+from ..ops import fq, fr, msm, poly
 from ..utils.rand import ZkRng
 from ..utils import profiling
 from .lc import ONE_TERM, LinearCombination
@@ -236,6 +238,37 @@ def _ensure_host_powers(pp: UniversalParams) -> list | None:
     return pp._host_powers
 
 
+def _ensure_msm_table(pp: UniversalParams):
+    """Fixed-base table over the G1 powers (ops/msm.msm_fixed_many), built
+    once per SRS and cached on the params; None for an SRS on the CPU,
+    whose MSMs take the host route."""
+    if pp.device.type != "cuda":
+        return None
+    table = getattr(pp, "_msm_table", None)
+    if table is None:
+        c = msm._fixed_c(pp.powers_of_g[0].shape[0])
+        with profiling.span("Precomputing fixed-base MSM table"):
+            table = pp._msm_table = msm.build_fixed_table(pp.powers_of_g, c)
+    return table
+
+
+# exact reruns of a commit batch after a fold flag fired (see _run_msm_jobs)
+STATS = {"exact_reruns": 0}
+
+
+def _fetch_affine(stacked: cd.Point, flags: list) -> tuple:
+    """ONE device-to-host copy of the Jacobian limbs and the fold flags ->
+    (host affine points, whether a flag fired)."""
+    n = stacked[0].shape[0]
+    parts = [c.reshape(-1) for c in stacked]
+    if flags:
+        parts.append(torch.stack(flags).to(torch.int32))
+    host = torch.cat(parts).cpu().numpy()
+    size = n * fq.L
+    x, y, z = (host[i * size : (i + 1) * size].reshape(n, fq.L) for i in range(3))
+    return cd.affine_ints_from_raw(x, y, z), bool(host[3 * size :].any())
+
+
 def _run_msm_jobs(ck: CommitterKey, jobs: list) -> list:
     """Run (offset, scalars_mont) MSM jobs over the G1 powers -> host affine."""
     total = sum(scal.shape[0] for _, scal in jobs)
@@ -247,11 +280,25 @@ def _run_msm_jobs(ck: CommitterKey, jobs: list) -> list:
                 ints = fr.to_ints(scal)
                 out.append(hc.g1_msm(host_powers[off : off + len(ints)], ints))
             return out
+    table = _ensure_msm_table(ck.pp)
     with profiling.span("msm jobs: dispatch"):
-        jacs = msm.msm_many(ck.pp.powers_of_g, jobs)
+        jacs = msm.msm_many(ck.pp.powers_of_g, jobs, table=table)
         stacked = tuple(torch.cat([p[i] for p in jacs], dim=0) for i in range(3))
     with profiling.span("msm jobs: result fetch + normalize"):
-        return cd.to_affine_ints_host(stacked)
+        affs, fired = _fetch_affine(stacked, msm.pending_fold_flags())
+    if fired:
+        # a bucket overflowed its capacity (a degenerate scalar pattern) or
+        # a fast mixed add met P == Q: rerun the batch on the table path
+        # with complete mixed adds and every capacity raised to its
+        # largest bucket, so that neither can recur
+        print("[kzg] fold flag fired: exact table rerun", flush=True)
+        STATS["exact_reruns"] += 1
+        jacs = msm.msm_many(ck.pp.powers_of_g, jobs, exact=True, table=table)
+        stacked = tuple(torch.cat([p[i] for p in jacs], dim=0) for i in range(3))
+        affs, fired = _fetch_affine(stacked, msm.pending_fold_flags())
+        if fired:
+            raise PCError("the exact MSM rerun still reports a spill or a degenerate add")
+    return affs
 
 
 def commit(ck: CommitterKey, labeled_polys: list, rng: ZkRng | None):

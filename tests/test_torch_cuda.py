@@ -65,3 +65,89 @@ def test_cuda_routing_counts_launches(dev):
     ntt.ntt(x, 1 << 11)
     assert cuda.LAUNCHES["field_binop"] >= 1 and cuda.LAUNCHES["field_inv"] == 1
     assert cuda.LAUNCHES["ntt_block_stages"] == 1 and cuda.LAUNCHES["ntt_cross_stage"] == 1
+
+
+def _curve_points(n, seed, dev):
+    from marlin_tpu_torch.fields import bls12_381 as P
+    from marlin_tpu_torch.fields import host_curve as hc
+
+    rng = np.random.default_rng(seed)
+    ks = [int.from_bytes(rng.bytes(40), "little") % (P.R_MODULUS - 1) + 1 for _ in range(n)]
+    return hc.g1_fixed_base_powers(hc.G1_GEN, ks)
+
+
+def test_g1_add_and_double_kernels_match_plain(dev):
+    from marlin_tpu_torch.fields import host_curve as hc
+    from marlin_tpu_torch.ops import curve
+    from marlin_tpu_torch.ops import curve_device as cd
+
+    p = _curve_points(300, 6, dev)
+    a = p[:200] + [p[0], p[1], None, p[2], None]
+    b = p[100:300] + [p[0], hc.g1_neg(p[1]), p[3], None, None]
+    A, B = cd.from_affine_ints(a, dev), cd.from_affine_ints(b, dev)
+    S = curve.add_kernel(A, B)
+    for k, q in zip(S, curve.add_plain(A, B)):
+        assert torch.equal(k, q)
+    for k, q in zip(curve.add_kernel(S, A), curve.add_plain(S, A)):  # Z != 1
+        assert torch.equal(k, q)
+    for k, q in zip(curve.double_kernel(S), curve.double_plain(S)):
+        assert torch.equal(k, q)
+    assert cd.to_affine_ints(S) == [hc.g1_add(x, y) for x, y in zip(a, b)]
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_bucket_fold_kernel_matches_plain(dev, exact):
+    """Signed and empty slots, an empty lane, and a P + P in one sub-row
+    (the fast fold flags it)."""
+    from marlin_tpu_torch.ops import curve
+    from marlin_tpu_torch.ops import curve_device as cd
+
+    rows = cd.from_affine_ints(_curve_points(300, 7, dev), dev)
+    table = curve.pack_points_xy(rows[0], rows[1])
+    rng = np.random.default_rng(8)
+    lanes, cap = 37, 3 * curve.FOLD_SUBROWS + 8
+    lay = np.zeros((lanes, cap), np.int32)
+    for b in range(lanes):
+        fill = int(rng.integers(0, cap))
+        lay[b, :fill] = (rng.permutation(300)[:fill] + 1) * rng.choice([-1, 1], size=fill)
+    lay[5] = 0
+    lay[9, 2] = lay[9, 2 + curve.FOLD_SUBROWS] = 11
+    layout = torch.as_tensor(lay, device=dev)
+    k_pts, k_flag = curve.bucket_fold_kernel(table, layout, exact)
+    p_pts, p_flag = curve.bucket_fold_plain(table, layout, exact)
+    for k, q in zip(k_pts, p_pts):
+        assert torch.equal(k, q)
+    assert int(k_flag) == int(p_flag) == (0 if exact else 1)
+
+
+def test_table_msm_on_the_card_equals_the_host_msm(dev):
+    from marlin_tpu_torch.fields import host_curve as hc
+    from marlin_tpu_torch.ops import curve_device as cd
+    from marlin_tpu_torch.ops import msm
+
+    pts = _curve_points(700, 9, dev)
+    table = msm.build_fixed_table(cd.from_affine_ints(pts, dev), 6)
+    rng = np.random.default_rng(10)
+    specs = [(0, 600), (100, 520), (3, 5)]
+    r = msm.P.R_MODULUS
+    scalars = [[int.from_bytes(rng.bytes(40), "little") % r for _ in range(n)] for _, n in specs]
+    jobs = [(off, fr.from_ints(s, dev)) for (off, _), s in zip(specs, scalars)]
+    msm.pending_fold_flags()
+    out = msm.msm_fixed_many(table, jobs)
+    assert not msm.fold_flags_fired()
+    got = cd.to_affine_ints_host(tuple(torch.cat([p[i] for p in out]) for i in range(3)))
+    assert got == [hc.g1_msm(pts[off : off + n], s) for (off, n), s in zip(specs, scalars)]
+
+
+def test_curve_kernels_count_launches(dev):
+    from marlin_tpu_torch.ops import curve
+    from marlin_tpu_torch.ops import curve_device as cd
+
+    p = cd.from_affine_ints(_curve_points(8, 11, dev), dev)
+    table = curve.pack_points_xy(p[0], p[1])
+    cuda.reset_launches()
+    cd.add(p, p)
+    cd.double(p)
+    curve.bucket_fold(table, torch.tensor([[1, -2, 0, 3]], dtype=torch.int32, device=dev))
+    assert cuda.LAUNCHES["g1_add"] == 1 and cuda.LAUNCHES["g1_double"] == 1
+    assert cuda.LAUNCHES["bucket_fold"] == 1

@@ -10,9 +10,11 @@ Builds the bench circuit (`DummyCircuit`, 2^log2 constraints, SRS sized by
   synchronizes the device, so a phase's seconds include its kernels);
 * one prove under `torch.profiler` (CPU and CUDA activity): device time by
   kernel name, their sum, and the device's busy share of the wall time;
-* each kernel alone at the main path's largest shape (2^16 Fr elements),
-  20 launches under the profiler: its device time per launch, free of the
-  wrapper's host overhead that CUDA-event timing of a Python call includes.
+* each kernel alone at the main path's largest shape (2^16 Fr elements;
+  2^16 points for the group law; the prove's largest fold, round 3's three
+  jobs of 2^16 - 1 scalars, for the bucket fold), 20 launches under the
+  profiler: its device time per launch, free of the wrapper's host overhead
+  that CUDA-event timing of a Python call includes.
 
 Prints one JSON object (and writes it to `--out`).  Needs a CUDA device;
 imports nothing of JAX.
@@ -68,18 +70,21 @@ _KERNEL_SYMBOLS = {
     "field_inv (fr)": "inv_kernel<8>",
     "ntt_block_stages": "block_stages_kernel",
     "ntt_cross_stage": "cross_stage_kernel",
+    "g1_add (2^16 points)": "add_kernel",
+    "g1_double (2^16 points)": "double_kernel",
+    "bucket_fold (largest fold of the prove)": "fold_kernel<false>",
 }
 
 
 def _kernel_device_times(torch, reps: int = 20) -> dict:
-    """Device microseconds per launch of each kernel at 2^16 Fr elements."""
+    """Device microseconds per launch of each kernel at the main path's shapes."""
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import random_elements
+    from chip_smoke import FOLD_JOBS, fold_layout, random_elements
     from marlin_tpu_torch.ops import bigint as bi
-    from marlin_tpu_torch.ops import fr, ntt
+    from marlin_tpu_torch.ops import curve, fq, fr, msm, ntt
 
     rng = np.random.default_rng(3)
     n = 1 << 16
@@ -88,11 +93,23 @@ def _kernel_device_times(torch, reps: int = 20) -> dict:
     b = torch.as_tensor(random_elements(np, rng, fr.CTX, n), device=dev)
     _rev, tw = ntt._plan_tensors(n, False, dev)
     x = a.clone()
+    # the group law's cost does not depend on the operands being points
+    p, q = ([torch.as_tensor(random_elements(np, rng, fq.CTX, n), device=dev) for _ in range(3)]
+            for _ in range(2))
+    # a table of random 32-bit limbs below q, at the 2^14 prove's c = 10
+    xy = torch.randint(-(1 << 31), 1 << 31, (26 * n, 24), dtype=torch.int32, device=dev)
+    xy[:, 11] &= 0x0FFFFFFF
+    xy[:, 23] &= 0x0FFFFFFF
+    table = msm.FixedBaseTable(xy, 10, 26, n)
+    layout = fold_layout(torch, table, FOLD_JOBS, 11)
     calls = {
         "field_binop (fr mul)": lambda: bi.binop_kernel("mul", fr.CTX, a, b),
         "field_inv (fr)": lambda: bi.inv_kernel(fr.CTX, a),
         "ntt_block_stages": lambda: ntt.block_stages_kernel(x, tw, ntt.BLOCK_LOG2),
         "ntt_cross_stage": lambda: ntt.cross_stage_kernel(x, tw, 15),
+        "g1_add (2^16 points)": lambda: curve.add_kernel(p, q),
+        "g1_double (2^16 points)": lambda: curve.double_kernel(p),
+        "bucket_fold (largest fold of the prove)": lambda: curve.bucket_fold_kernel(xy, layout),
     }
     out = {}
     for label, fn in calls.items():
