@@ -9,8 +9,9 @@ Phases, each printing one line of JSON:
 2. build   — compile the CUDA kernels (marlin_tpu_torch/csrc) from source;
 3. kernels — every kernel against its plain PyTorch version on the card,
    bit for bit, at the main path's shapes, with edge inputs (0, 1, N-1;
-   identity points, P + P, P + (-P); a fold that meets P == Q); each timed
-   with CUDA events beside its plain version;
+   identity points, P + P, P + (-P); a fold that meets P == Q; identity
+   window sums, and 128 of them); each timed with CUDA events beside its
+   plain version;
 4. small   — a one-constraint circuit (SRS 32/32/96) proved under
    `test_rng()` on the CPU (plain versions) and on the card: equal proof
    bytes, the card's proof verifies, a wrong input and a flipped byte are
@@ -21,12 +22,23 @@ Phases, each printing one line of JSON:
 6. main    — the 2^14-constraint MarlinKZG10 prove over BLS12-381
    (`DummyCircuit`, SRS sized by `ahp.max_degree(n, n, 3n)`): setup, index,
    prove, verify, with phase and round seconds and each kernel's launch
-   count, all of which must be above 0; the proof must verify and be 855 B;
-   the prove reruns no MSM and calls no host MSM;
-7. msm     — the 2^14 prove's own MSM job list (offsets and sizes) with
+   count, all of which but the window combine's must be above 0; the proof
+   must verify and be 855 B; the prove reruns no MSM and calls no host MSM;
+7. classic — the same prove from the same rng state with
+   `MARLIN_TPU_MSM_TABLE=0`, every MSM on the classic Pippenger: equal
+   proof bytes, the window combine launched once per MSM job, no host MSM
+   call, no rerun; then steady proves on both routes in turns (table,
+   classic, classic, table), each from that rng state and with those bytes;
+8. msm     — the 2^14 prove's own MSM job list (offsets and sizes) with
    seeded random scalars through the card's commit path, each result equal
-   to the native host MSM; then a job of one repeated scalar, whose flag
-   must fire and whose exact rerun must equal the host MSM.
+   to the native host MSM; the public `msm()` on the card (random scalars,
+   duplicate points whose fast fold flags and reruns exactly, an identity
+   and a point off affine form, a ladder-sized batch) against the host
+   MSM; then a job of one repeated scalar, whose flag must fire and whose
+   exact classic rerun must equal the host MSM;
+9. sonic   — `MarlinSonic` on `DummyCircuit` at 2^11 on the CPU and on the
+   card (equal proof bytes), then at 2^14 on the card: the proof verifies
+   at 759 B, with no host MSM call.
 
 Then the kernel table, the card's name and power limit, and, as the last
 line, `{"ok": true, "device": {...}}`.  Any failure exits nonzero before
@@ -38,6 +50,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import io
 import json
 import os
@@ -67,6 +80,8 @@ CURVE_N = 1 << 16
 FOLD_JOBS = ((0, (1 << 16) - 1), (1, (1 << 16) - 1), (0, (1 << 16) - 1))
 MEDIUM_LOG2 = 11
 REPEATED_N = 1 << 14  # points of the msm phase's repeated-scalar job
+# kernel 6 at the 2^14 prove's largest classic MSMs (65,534-65,535 points)
+COMBINE_C, COMBINE_W = 10, 26
 DEV = "cuda"
 
 RECORDS: list = []
@@ -301,6 +316,25 @@ def fold_layout(torch, table, jobs, seed: int):
     return layouts.reshape(len(jobs) * nb, cap)
 
 
+def classic_fold_layout(torch, np, pts, seed: int):
+    """Lane-major layouts [16·1024, 128] of windows 0-15 of a classic MSM
+    over the points with seeded random scalars, as msm_pippenger folds them."""
+    from marlin_tpu_torch.ops import curve_device as cd
+    from marlin_tpu_torch.ops import msm
+    from marlin_tpu_torch.utils.rand import ZkRng
+
+    n = len(pts) - 1  # the prove's largest classic jobs hold 2^16 - 1 points
+    points = cd.from_affine_ints(pts[:n], DEV)
+    scal16 = torch.as_tensor(ZkRng(seed).rand_fr_limbs(n).astype("int32"), device=DEV)
+    c = min(13, max(6, n.bit_length() - 6))
+    num_windows, nb, cap = msm._classic_shape(n, c)
+    windows = range(min(num_windows - 1, msm._CLASSIC_MAX_SLOTS // (nb * cap)))
+    d = msm._window_digits(points, scal16, c, windows)
+    layouts, spill = msm._window_layout_device(d, nb, cap)
+    require(int(spill) == 0, "classic fold layout spilled")
+    return layouts.reshape(-1, cap)
+
+
 def phase_curve_kernels(torch, np) -> dict:
     """Kernels 4 and 5 against their plain versions at the main path's shapes."""
     from marlin_tpu_torch.fields import host_curve as hc
@@ -378,10 +412,25 @@ def phase_curve_kernels(torch, np) -> dict:
         checks.append({"exact": exact, "lanes": 4, "cap": small.shape[1], "flags": int(kf),
                        "max_abs_err": e})
         e_fold = max(e_fold, e)
-    filled = int((layout != 0).sum())
+    def fold_bound(lay):
+        filled = int((lay != 0).sum())
+        lanes, cap = lay.shape
+        return filled, bound(filled * FQ_BYTES + lanes * cap * 4 + lanes * (3 * FQ_BYTES + 4),
+                             filled * 11 * FQ_MUL_OPS)
+
+    # the classic Pippenger's largest fold launch: 16 windows of the 2^14
+    # prove's 65,535-point MSMs (c = 10, cap 128) over the points themselves
+    classic = classic_fold_layout(torch, np, pts, 12)
+    xy = curve.pack_points_xy(*cd.from_affine_ints(pts, dev)[:2])
+    kp, kf = curve.bucket_fold_kernel(xy, classic)
+    pp, pf = curve.bucket_fold_plain(xy, classic)
+    e = max(err(kp, pp), abs(int(kf) - int(pf)))
+    checks.append({"exact": False, "lanes": classic.shape[0], "cap": classic.shape[1],
+                   "flags": int(kf), "max_abs_err": e, "classic": True})
+    e_fold = max(e_fold, e)
+    c_filled, (c_ms, _) = fold_bound(classic)
+    filled, (b_ms, b_by) = fold_bound(layout)
     lanes, cap = layout.shape
-    b_ms, b_by = bound(filled * FQ_BYTES + lanes * cap * 4 + lanes * (3 * FQ_BYTES + 4),
-                       filled * 11 * FQ_MUL_OPS)
     results["bucket_fold"] = {
         "route": "cuda", "source": "marlin_tpu_torch/csrc/curve.cu",
         "replaces": "marlin_tpu/ops/pallas/curve.py:414",
@@ -390,11 +439,65 @@ def phase_curve_kernels(torch, np) -> dict:
         "ms": time_ms(torch, lambda: curve.bucket_fold_kernel(table.xy, layout)),
         "plain_ms": time_ms(torch, lambda: curve.bucket_fold_plain(table.xy, layout), reps=1, warmup=0),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "classic": {"shape": f"{list(classic.shape)} layout, {c_filled} filled slots",
+                    "ms": time_ms(torch, lambda: curve.bucket_fold_kernel(xy, classic)),
+                    "bound_ms": c_ms},
     }
+    results["combine_windows"] = combine_windows_row(torch, np, pts)
     torch.cuda.synchronize()
     for name, r in results.items():
         require(r["max_abs_err"] == 0, f"{name} disagrees with its plain version: {r}")
     return results
+
+
+def combine_windows_row(torch, np, pts) -> dict:
+    """Kernel 6 at the prove's shape (c = 10, W = 26) on Jacobian window
+    sums with identities among them, and at 128 sums (c = 2)."""
+    from marlin_tpu_torch.fields import host_curve as hc
+    from marlin_tpu_torch.ops import curve
+    from marlin_tpu_torch.ops import curve_device as cd
+
+    dev = torch.device(DEV)
+
+    def err(ks, ps) -> int:
+        return max(int((k.to(torch.int64) - p.to(torch.int64)).abs().max().item()) for k, p in zip(ks, ps))
+
+    def sums(W, seed):
+        rng = np.random.default_rng(seed)
+        a = [pts[int(i)] for i in rng.choice(len(pts), 2 * W, replace=False)]
+        A = cd.from_affine_ints(a[:W], dev)
+        S = curve.add_kernel(A, cd.from_affine_ints(a[W:], dev))  # Z != 1
+        ident = cd.identity((2,), dev)
+        for t, i in zip(S, ident):
+            t[torch.as_tensor([0, W // 2], device=dev)] = i
+        affs = [None] + [hc.g1_add(x, y) for x, y in zip(a[1:W], a[W + 1 :])]
+        affs[W // 2] = None
+        return tuple(t[:, None].contiguous() for t in S), affs
+
+    c, W = COMBINE_C, COMBINE_W
+    stacked, affs = sums(W, 21)
+    got = curve.combine_windows_kernel(stacked, c)
+    e = err(got, curve.combine_windows_plain(stacked, c))
+    horner = None
+    for w, s in enumerate(affs):
+        horner = hc.g1_add(horner, hc.g1_mul(s, 1 << (c * w)) if s else None)
+    require(cd.to_affine_ints(got) == [horner], "combine_windows: the sum differs from the host's")
+    checks = [{"c": c, "W": W, "max_abs_err": e}]
+    wide, _ = sums(curve.COMBINE_MAX, 22)
+    e_wide = err(curve.combine_windows_kernel(wide, 2), curve.combine_windows_plain(wide, 2))
+    checks.append({"c": 2, "W": curve.COMBINE_MAX, "max_abs_err": e_wide})
+    # the chain of the longest lane, and all lanes' doublings (7 products each)
+    doublings = c * W * (W - 1) // 2
+    b_ms, b_by = bound((W + 1) * 3 * FQ_BYTES, doublings * 7 * FQ_MUL_OPS)
+    return {
+        "route": "cuda", "source": "marlin_tpu_torch/csrc/curve.cu",
+        "replaces": "marlin_tpu/ops/pallas/curve.py:476",
+        "max_abs_err": max(e, e_wide), "checks": checks,
+        "shape": f"[{W}, 1] Jacobian window sums, c={c}", "chain_doublings": c * (W - 1),
+        "ms": time_ms(torch, lambda: curve.combine_windows_kernel(stacked, c)),
+        "plain_ms": time_ms(torch, lambda: curve.combine_windows_plain(stacked, c), reps=1, warmup=0),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    }
 
 
 class _OneConstraint:
@@ -507,7 +610,7 @@ def phase_medium(torch) -> dict:
 
 def phase_main(torch) -> tuple:
     from marlin_tpu_torch.fields import bls12_381 as P
-    from marlin_tpu_torch.ops import cuda, msm
+    from marlin_tpu_torch.ops import cuda
     from marlin_tpu_torch.snark import ahp, kzg
     from marlin_tpu_torch.snark.domains import compute_size_of_domain
     from marlin_tpu_torch.snark.marlin import Marlin
@@ -533,27 +636,13 @@ def phase_main(torch) -> tuple:
     srs = timed("setup", lambda: Marlin.universal_setup(n, n, 3 * n, rng, device=DEV))
     pk, vk = timed("index", lambda: Marlin.index(srs, circ, device=DEV))
     # the prove's MSM jobs, host MSM calls and exact reruns, counted around it
-    jobs, host_calls = [], [0]
-    run_jobs, host_msm = kzg._run_msm_jobs, msm._host_msm
-
-    def recording_run(ck, js):
-        jobs.extend((off, int(scal.shape[0])) for off, scal in js)
-        return run_jobs(ck, js)
-
-    def counting_host_msm(*args):
-        host_calls[0] += 1
-        return host_msm(*args)
-
     before = dict(cuda.LAUNCHES)
     reruns = kzg.STATS["exact_reruns"]
-    kzg._run_msm_jobs, msm._host_msm = recording_run, counting_host_msm
+    rng_at_prove = copy.deepcopy(rng)
     profiling.enable(True)
     profiling.collect()
-    try:
-        with contextlib.redirect_stdout(io.StringIO()):
-            proof = timed("prove", lambda: Marlin.prove(pk, circ, rng, device=DEV))
-    finally:
-        kzg._run_msm_jobs, msm._host_msm = run_jobs, host_msm
+    with counted_msm_calls() as seen, contextlib.redirect_stdout(io.StringIO()):
+        proof = timed("prove", lambda: Marlin.prove(pk, circ, rng, device=DEV))
     spans = profiling.collect()
     profiling.enable(False)
     prove_launches = {k: v - before[k] for k, v in cuda.LAUNCHES.items()}
@@ -573,9 +662,9 @@ def phase_main(torch) -> tuple:
         launches=launches,
         prove_launches=prove_launches,
         binop_launches=binop_by_op,
-        prove_msm_jobs=jobs,
+        prove_msm_jobs=seen["jobs"],
         prove_exact_reruns=prove_reruns,
-        prove_host_msm_calls=host_calls[0],
+        prove_host_msm_calls=seen["host_calls"],
         proof_bytes=proof.serialized_size(),
         verifies=bool(ok),
     )
@@ -586,18 +675,104 @@ def phase_main(torch) -> tuple:
     )
     require(rec["proof_bytes"] == 855, f"proof is {rec['proof_bytes']} B, expected 855")
     for k, v in launches.items():
-        require(v > 0, f"kernel {k} was not launched on the main path")
+        # the window combine serves the classic Pippenger only: phase classic
+        require(v > 0 or k == "combine_windows", f"kernel {k} was not launched on the main path")
     require(prove_reruns == 0, f"the 2^14 prove reran {prove_reruns} MSM batches")
-    require(host_calls[0] == 0, f"the 2^14 prove called the host MSM {host_calls[0]} times")
-    return rec, pk.committer_key
+    require(seen["host_calls"] == 0, f"the 2^14 prove called the host MSM {seen['host_calls']} times")
+    state = {"pk": pk, "vk": vk, "circ": circ, "public": public, "rng": rng_at_prove,
+             "proof": proof.to_bytes()}
+    return rec, state
+
+
+@contextlib.contextmanager
+def counted_msm_calls():
+    """Record the MSM jobs of kzg._run_msm_jobs and count host MSM calls."""
+    from marlin_tpu_torch.ops import msm
+    from marlin_tpu_torch.snark import kzg
+
+    seen = {"jobs": [], "host_calls": 0}
+    run_jobs, host_msm = kzg._run_msm_jobs, msm._host_msm
+
+    def recording_run(ck, js):
+        seen["jobs"].extend((off, int(scal.shape[0])) for off, scal in js)
+        return run_jobs(ck, js)
+
+    def counting_host_msm(*args):
+        seen["host_calls"] += 1
+        return host_msm(*args)
+
+    kzg._run_msm_jobs, msm._host_msm = recording_run, counting_host_msm
+    try:
+        yield seen
+    finally:
+        kzg._run_msm_jobs, msm._host_msm = run_jobs, host_msm
+
+
+@contextlib.contextmanager
+def classic_route():
+    """MARLIN_TPU_MSM_TABLE=0: the prover's MSMs take the classic Pippenger."""
+    old = os.environ.get("MARLIN_TPU_MSM_TABLE")
+    os.environ["MARLIN_TPU_MSM_TABLE"] = "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("MARLIN_TPU_MSM_TABLE")
+        else:
+            os.environ["MARLIN_TPU_MSM_TABLE"] = old
+
+
+def phase_classic(torch, state) -> dict:
+    """The main prove again from the same rng state with every MSM on the
+    classic Pippenger: equal bytes, kernel 6 once per job, no host MSM."""
+    from marlin_tpu_torch.ops import cuda
+    from marlin_tpu_torch.snark import kzg
+    from marlin_tpu_torch.snark.marlin import Marlin
+
+    pk, circ = state["pk"], state["circ"]
+
+    def prove(classic: bool):
+        rng = copy.deepcopy(state["rng"])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with (classic_route() if classic else contextlib.nullcontext()):
+            with contextlib.redirect_stdout(io.StringIO()):
+                proof = Marlin.prove(pk, circ, rng, device=DEV)
+        torch.cuda.synchronize()
+        return proof, time.perf_counter() - t
+
+    reruns = kzg.STATS["exact_reruns"]
+    cuda.reset_launches()
+    with counted_msm_calls() as seen:
+        proof, first_s = prove(classic=True)
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    rec = {"first_prove_s": first_s, "launches": launches, "msm_jobs": seen["jobs"],
+           "host_msm_calls": seen["host_calls"], "exact_reruns": kzg.STATS["exact_reruns"] - reruns}
+    require(proof.to_bytes() == state["proof"], "classic: proof bytes differ from the table route's")
+    require(Marlin.verify(state["vk"], state["public"], proof, copy.deepcopy(state["rng"]), device=DEV),
+            "classic: the proof does not verify")
+    require(proof.serialized_size() == 855, f"classic: proof is {proof.serialized_size()} B")
+    require(launches["combine_windows"] == len(seen["jobs"]) > 0,
+            f"classic: {launches['combine_windows']} combines for {len(seen['jobs'])} MSM jobs")
+    require(seen["host_calls"] == 0, f"classic: {seen['host_calls']} host MSM calls")
+    require(rec["exact_reruns"] == 0, f"classic: {rec['exact_reruns']} exact reruns")
+    steady = {"table": [], "classic": []}
+    for classic in (False, True, True, False):
+        proof, secs = prove(classic)
+        require(proof.to_bytes() == state["proof"], "classic: a steady prove's bytes differ")
+        steady["classic" if classic else "table"].append(secs)
+    rec.update(steady_prove_s=steady, proof_bytes=855, bytes_equal=True, verifies=True)
+    return rec
 
 
 def phase_msm(torch, np, ck, jobs) -> dict:
     """The prove's job list with seeded scalars through the card's commit
-    path, against the native host MSM; then a repeated-scalar job."""
+    path, against the native host MSM; the public msm() on the card; then a
+    repeated-scalar job."""
     from marlin_tpu_torch.fields import host_curve as hc
+    from marlin_tpu_torch.ops import cuda, fr
     from marlin_tpu_torch.ops import curve_device as cd
-    from marlin_tpu_torch.ops import fr
     from marlin_tpu_torch.ops.limbs import limbs_to_ints
     from marlin_tpu_torch.snark import kzg
     from marlin_tpu_torch.utils.rand import ZkRng
@@ -616,18 +791,120 @@ def phase_msm(torch, np, ck, jobs) -> dict:
     host_s = time.perf_counter() - t
     require(got == want, "a job of the prove's list differs from the host MSM")
 
+    public = phase_public_msm(torch, np, ck.pp.powers_of_g, powers)
+
     # one scalar for all the points: every window's entries share a bucket,
-    # which overflows its capacity; the rerun must be exact
+    # which overflows its capacity; the rerun on the classic path must be exact
     rep = np.repeat(ZkRng(7).rand_fr_limbs(1), REPEATED_N, axis=0)
+    cuda.reset_launches()
     with contextlib.redirect_stdout(io.StringIO()) as printed:
         got_rep = kzg._run_msm_jobs(ck, [(0, fr.from_canonical_limbs(rep, DEV))])
+    torch.cuda.synchronize()
     fired = kzg.STATS["exact_reruns"] - reruns
     require(fired == 1, f"the repeated-scalar job reran {fired} times, expected once")
+    require("classic" in printed.getvalue(), "the rerun did not take the classic path")
+    require(cuda.LAUNCHES["combine_windows"] == 1, "the classic rerun launched no window combine")
     require(got_rep == [hc.g1_msm(powers[:REPEATED_N], limbs_to_ints(rep))],
             "the exact rerun differs from the host MSM")
     return {"jobs": [list(j) for j in jobs], "card_s": card_s, "host_s": host_s,
-            "equal": True, "repeated_scalar": {"n": REPEATED_N, "reruns": fired, "equal": True,
-                                               "printed": printed.getvalue().strip()}}
+            "equal": True, "public_msm": public,
+            "repeated_scalar": {"n": REPEATED_N, "reruns": fired, "equal": True,
+                                "launches": dict(cuda.LAUNCHES),
+                                "printed": printed.getvalue().strip()}}
+
+
+def phase_public_msm(torch, np, dev_powers, powers) -> dict:
+    """The public msm() on card tensors against the host MSM: random
+    scalars; duplicate points, whose fast fold flags and which msm() reruns
+    exactly; an identity and a point off affine form; a batch below the
+    classic Pippenger's minimum (the ladder)."""
+    from marlin_tpu_torch.fields import bls12_381 as P
+    from marlin_tpu_torch.fields import host_curve as hc
+    from marlin_tpu_torch.ops import cuda, fq, fr, msm
+    from marlin_tpu_torch.ops import curve_device as cd
+    from marlin_tpu_torch.utils.rand import ZkRng
+
+    q = P.Q_MODULUS
+    cases = {}
+
+    def run(name, idx, edit=None):
+        n = len(idx)
+        scal = ZkRng(200 + len(cases)).rand_fr_list(n)
+        ix = torch.as_tensor(idx, device=DEV)
+        pts = tuple(t[ix].clone() for t in dev_powers)
+        affs = [powers[i] for i in idx]
+        if edit:
+            edit(pts, affs)
+        cuda.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = cd.to_affine_ints(msm.msm(pts, fr.from_ints(scal, DEV)))
+        secs = time.perf_counter() - t
+        ok = got == [hc.g1_msm(affs, scal)]
+        cases[name] = {"n": n, "card_s": secs, "equal": ok, "launches": dict(cuda.LAUNCHES)}
+        require(ok, f"msm() on the card differs from the host MSM: {name}")
+
+    n_big = 1 << 14
+    run("random", list(range(n_big)))
+    # 16 points, each 128 times: sub-rows of the fold meet P == Q
+    run("duplicates", [i % 16 for i in range(2048)])
+
+    def identity_and_jacobian(pts, affs):
+        pts[2][3] = 0  # Z = 0: the identity
+        affs[3] = None
+        z = 0x1234567
+        x, y = affs[7]
+        jac = fq.from_ints([x * z * z % q, y * z * z * z % q, z], DEV)
+        for t, v in zip(pts, jac):
+            t[7] = v
+
+    run("identity_and_jacobian", list(range(100, 1600)), identity_and_jacobian)
+    run("ladder", list(range(300)))
+    require(cases["duplicates"]["launches"]["combine_windows"] == 2,
+            "msm() did not rerun the duplicate-point MSM exactly")
+    require(cases["ladder"]["launches"]["combine_windows"] == 0, "a ladder-sized msm() took the Pippenger")
+    return cases
+
+
+def phase_sonic(torch) -> dict:
+    """MarlinSonic at 2^11 on the CPU and on the card, then at 2^14 on the card."""
+    from marlin_tpu_torch.fields import bls12_381 as P
+    from marlin_tpu_torch.snark.marlin import MarlinSonic
+    from marlin_tpu_torch.utils.rand import test_rng
+
+    out = {}
+    proofs = {}
+    for device, log2 in (("cpu", MEDIUM_LOG2), (DEV, MEDIUM_LOG2), (DEV, MAIN_LOG2)):
+        n = 1 << log2
+        rng = test_rng()
+        a, b = rng.rand_fr(), rng.rand_fr()
+        circ = DummyCircuit(a, b, num_variables=10, num_constraints=n)
+        rec = {}
+
+        def timed(name, fn):
+            t = time.perf_counter()
+            res = fn()
+            if device == DEV:
+                torch.cuda.synchronize()
+            rec[f"{name}_s"] = time.perf_counter() - t
+            return res
+
+        srs = timed("setup", lambda: MarlinSonic.universal_setup(n, n, 3 * n, rng, device=device))
+        pk, vk = timed("index", lambda: MarlinSonic.index(srs, circ, device=device))
+        with counted_msm_calls() as seen:
+            proof = timed("prove", lambda: MarlinSonic.prove(pk, circ, rng, device=device))
+        rec["host_msm_calls"] = seen["host_calls"]
+        rec["verifies"] = bool(MarlinSonic.verify(vk, [a * b % P.R_MODULUS], proof, rng, device=device))
+        rec["proof_bytes"] = proof.serialized_size()
+        proofs[(device, log2)] = proof.to_bytes()
+        out[f"{device}_2^{log2}"] = rec
+        require(rec["verifies"], f"sonic: the {device} proof at 2^{log2} does not verify")
+        require(rec["proof_bytes"] == 759, f"sonic: proof is {rec['proof_bytes']} B, expected 759")
+    require(proofs[("cpu", MEDIUM_LOG2)] == proofs[(DEV, MEDIUM_LOG2)],
+            "sonic: card proof bytes differ from the CPU's")
+    require(out[f"{DEV}_2^{MAIN_LOG2}"]["host_msm_calls"] == 0, "sonic: the 2^14 prove called the host MSM")
+    out["bytes_equal_2^11"] = True
+    return out
 
 
 def main() -> int:
@@ -672,11 +949,19 @@ def main() -> int:
         emit({"phase": "medium", **phase_medium(torch)})
 
         phase = "main"
-        main_rec, ck = phase_main(torch)
+        main_rec, state = phase_main(torch)
         emit({"phase": "main", **main_rec})
 
+        phase = "classic"
+        classic_rec = phase_classic(torch, state)
+        emit({"phase": "classic", **classic_rec})
+
         phase = "msm"
+        ck = state["pk"].committer_key
         emit({"phase": "msm", **phase_msm(torch, np, ck, main_rec["prove_msm_jobs"])})
+
+        phase = "sonic"
+        emit({"phase": "sonic", **phase_sonic(torch)})
     except Exception as e:  # every phase failure ends the run without a result
         import traceback
 
@@ -689,7 +974,10 @@ def main() -> int:
     fr_mul_launches = main_rec["binop_launches"].get("fr.mul", 0)
     table = []
     for name, r in kernels.items():
-        launches = fr_mul_launches if name == "mont_mul" else main_rec["launches"][name]
+        # kernel 6 runs on the classic path only: its count is the classic prove's
+        launches = {"mont_mul": fr_mul_launches,
+                    "combine_windows": classic_rec["launches"]["combine_windows"]}.get(
+                        name, main_rec["launches"].get(name))
         table.append({
             "name": name, "route": r["route"], "source": r["source"], "replaces": r["replaces"],
             "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -1,5 +1,6 @@
-// Kernels 4 and 5: BLS12-381 G1 Jacobian add / double over Fq (NL = 12),
-// and the bucket fold of the fixed-table MSM.
+// Kernels 4, 5 and 6: BLS12-381 G1 Jacobian add / double over Fq (NL = 12),
+// the bucket fold of the MSMs, and the window combine of the classic
+// Pippenger.
 //
 // Kernel 4 replaces marlin_tpu/ops/pallas/curve.py::_build (pallas_call at
 // :201) with its _add_kernel / _double_kernel (:158-170): the complete
@@ -7,7 +8,9 @@
 // Kernel 5 replaces _build_fold / _fold_kernel (pallas_call at :414, body at
 // :320-384): the sum of a bucket's slots with the mixed add (:110-155, or the
 // no-double variant :276-317 that reports degeneracy), then a roll-halving
-// reduce of the partial sums with the complete add.
+// reduce of the partial sums with the complete add.  Kernel 6 replaces
+// _build_combine / _combine_kernel (pallas_call at :476, body at :427-461):
+// Σ_w 2^(c w) T_w over a classic Pippenger's W <= 128 window sums.
 //
 // Same formulas as the TPU kernels and as the plain versions in
 // marlin_tpu_torch/ops/curve.py.  The TPU evaluates every branch of the group
@@ -26,7 +29,12 @@
 // temporaries in registers and reads its operands only as the formula needs
 // them, so that about eight Fq values are live; the fold gathers its rows
 // straight from the table (no [slots, 24] gather in device memory), and an
-// empty slot costs one index load.
+// empty slot costs one index load.  The combine is bound by neither: its
+// longest lane is a chain of c (W-1) dependent doublings (250 at c = 10,
+// W = 26), 7 dependent Fq products each, on W threads of one block.  The
+// TPU masks c (W-1) doubling steps over all 128 lanes; here thread w runs
+// its own c w doublings, unmasked, and a halving tree of complete adds in
+// shared memory joins the lanes.
 //
 // C interface (ctypes): every entry returns the cudaError_t of its launch.
 
@@ -40,6 +48,7 @@ namespace {
 constexpr int NL = 12;         // Fq: 12 x 32-bit limbs
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kSubRows = 32;   // fold sub-rows per bucket lane: one warp (ops/curve.py FOLD_SUBROWS)
+constexpr int kCombineThreads = 128;  // the combine's largest window count (ops/curve.py COMBINE_MAX)
 
 __device__ __forceinline__ bool fe_is_zero(const uint32_t a[NL]) {
   uint32_t o = 0;
@@ -319,6 +328,47 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Kernel 6 (curve.py:427-461): thread w doubles window sum T_w c w times
+// with the doubling kernel's rule (Y = 0 or Z = 0 gives Z3 = 0), then the
+// lanes meet in shared memory: at each level s (a power of two, halving),
+// lane w < s takes lane w + s if that lane exists.  Thread 0 writes the sum.
+__global__ void __launch_bounds__(kCombineThreads)
+    combine_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ y,
+                   const int32_t* __restrict__ z, int W, int c, int32_t* __restrict__ ox,
+                   int32_t* __restrict__ oy, int32_t* __restrict__ oz, ModParams p) {
+  __shared__ uint32_t part[kCombineThreads][3 * NL];
+  const int w = threadIdx.x;
+  uint32_t* mine = part[w];
+  if (w < W) {
+    uint32_t X[NL], Y[NL], Z[NL];
+    fe_load<NL>(X, x + w * 2 * NL);
+    fe_load<NL>(Y, y + w * 2 * NL);
+    fe_load<NL>(Z, z + w * 2 * NL);
+    for (int i = 0; i < c * w; i++) {
+      const bool y_zero = fe_is_zero(Y) || fe_is_zero(Z);
+      jac_double_raw(X, Y, Z, p);
+      if (y_zero) fe_set_zero(Z);
+    }
+#pragma unroll
+    for (int j = 0; j < NL; j++) mine[j] = X[j], mine[NL + j] = Y[j], mine[2 * NL + j] = Z[j];
+  }
+  __syncthreads();
+  int s = 1;
+  while (s < W) s <<= 1;
+  for (s >>= 1; s >= 1; s >>= 1) {
+    if (w < s && w + s < W) fold_join(mine, part[w + s], p);
+    __syncthreads();
+  }
+  if (w == 0) {
+    WordPoint sum{mine};
+    uint32_t X[NL], Y[NL], Z[NL];
+    sum.X(X), sum.Y(Y), sum.Z(Z);
+    fe_store<NL>(ox, X);
+    fe_store<NL>(oy, Y);
+    fe_store<NL>(oz, Z);
+  }
+}
+
 unsigned blocks_for(long long n, int per_block) {
   return (unsigned)((n + per_block - 1) / per_block);
 }
@@ -367,5 +417,17 @@ extern "C" int marlin_bucket_fold(int exact, const void* table, const void* layo
   } else {
     fold_kernel<false><<<blocks, kThreads, 0, s>>>(t, l, lanes, cap, px, py, pz, pf, p);
   }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int marlin_combine_windows(const void* x, const void* y, const void* z, int W, int c,
+                                      void* ox, void* oy, void* oz, const void* params,
+                                      void* stream) {
+  if (W <= 0 || W > kCombineThreads || c < 0) return (int)cudaErrorInvalidValue;
+  const ModParams p = mod_params_from_words(static_cast<const uint32_t*>(params));
+  combine_kernel<<<1, kCombineThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(x), static_cast<const int32_t*>(y),
+      static_cast<const int32_t*>(z), W, c, static_cast<int32_t*>(ox), static_cast<int32_t*>(oy),
+      static_cast<int32_t*>(oz), p);
   return (int)cudaGetLastError();
 }

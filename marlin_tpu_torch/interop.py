@@ -10,6 +10,8 @@ limb arrays as int32 tensors on the requested device.
 
 Limb arrays keep their layout (`[n, L]` 16-bit Montgomery limbs), so the
 state crosses over unchanged: proving from it gives the same proof bytes.
+Keys of either PC scheme cross: a Sonic verifier key is told apart by its
+`neg_h_powers`, and a Sonic SRS carries its negative G2 powers.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 
 from .ops.sparse import CooMatrix
-from .snark import kzg
+from .snark import kzg, sonic
 from .snark.constraint_systems import MatrixArithmetization, MatrixEvals
 from .snark.data_structures import IndexProverKey, IndexVerifierKey
 from .snark.domains import domain_of_size
@@ -67,6 +69,7 @@ def universal_params(d: dict, device) -> kzg.UniversalParams:
     """SRS from plain data (the fields of `kzg.UniversalParams`)."""
     device = torch.device(device)
     host_gamma = d.get("host_gamma_powers")
+    neg_h = d.get("neg_powers_of_h")
     return kzg.UniversalParams(
         powers_of_g=_point(d["powers_of_g"], device),
         powers_of_gamma_g=_point(d["powers_of_gamma_g"], device),
@@ -75,6 +78,7 @@ def universal_params(d: dict, device) -> kzg.UniversalParams:
         h=_affine(d["h"]),
         beta_h=_affine(d["beta_h"]),
         host_gamma_powers=None if host_gamma is None else [_affine(p) for p in host_gamma],
+        neg_powers_of_h=None if neg_h is None else [_affine(p) for p in neg_h],
     )
 
 
@@ -105,21 +109,28 @@ def _info(d: dict) -> IndexInfo:
     return IndexInfo(**{k: int(v) for k, v in d.items()})
 
 
+def _pc_verifier_key(vk: dict):
+    common = dict(
+        g=_affine(vk["g"]),
+        gamma_g=_affine(vk["gamma_g"]),
+        h=_affine(vk["h"]),
+        beta_h=_affine(vk["beta_h"]),
+        supported_degree=int(vk["supported_degree"]),
+        max_degree=int(vk["max_degree"]),
+    )
+    if "neg_h_powers" in vk:
+        neg_h = {int(b): _affine(p) for b, p in vk["neg_h_powers"].items()}
+        return sonic.SonicVerifierKey(neg_h_powers=neg_h, **common)
+    shift = {int(b): _affine(p) for b, p in vk["shift_powers"].items()}
+    return kzg.VerifierKey(shift_powers=shift, **common)
+
+
 def verifier_key(d: dict) -> IndexVerifierKey:
     """Index verifier key from plain data (host-only: no tensors)."""
-    vk = d["verifier_key"]
     return IndexVerifierKey(
         index_info=_info(d["index_info"]),
         index_comms=[_commitment(c) for c in d["index_comms"]],
-        verifier_key=kzg.VerifierKey(
-            g=_affine(vk["g"]),
-            gamma_g=_affine(vk["gamma_g"]),
-            h=_affine(vk["h"]),
-            beta_h=_affine(vk["beta_h"]),
-            shift_powers={int(b): _affine(p) for b, p in vk["shift_powers"].items()},
-            supported_degree=int(vk["supported_degree"]),
-            max_degree=int(vk["max_degree"]),
-        ),
+        verifier_key=_pc_verifier_key(d["verifier_key"]),
     )
 
 
@@ -144,7 +155,9 @@ def index_keys(pk: dict, device) -> tuple[IndexProverKey, IndexVerifierKey]:
         domain_x=domain_of_size(int(ix["domain_x"]["size"])),
     )
     ck = pk["committer_key"]
-    committer_key = kzg.CommitterKey(
+    is_sonic = isinstance(vk.verifier_key, sonic.SonicVerifierKey)
+    key_cls = sonic.SonicCommitterKey if is_sonic else kzg.CommitterKey
+    committer_key = key_cls(
         pp=universal_params(ck["pp"], device),
         supported_degree=int(ck["supported_degree"]),
         degree_bounds=[int(b) for b in ck["degree_bounds"]],

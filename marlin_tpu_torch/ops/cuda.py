@@ -38,6 +38,7 @@ LAUNCHES: dict[str, int] = {
     "g1_add": 0,
     "g1_double": 0,
     "bucket_fold": 0,
+    "combine_windows": 0,
 }
 # the field binop's launches split by (field, op), e.g. ("fr", "mul")
 BINOP_LAUNCHES: dict[tuple, int] = {}
@@ -62,6 +63,8 @@ _SIGNATURES = {
     "marlin_g1_double": [_P] * 6 + [_LL, _P, _P],
     # (exact, table, layout, lanes, cap, ox, oy, oz, flags, params, stream)
     "marlin_bucket_fold": [_I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
+    # (x, y, z, W, c, ox, oy, oz, params, stream)
+    "marlin_combine_windows": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
 }
 
 

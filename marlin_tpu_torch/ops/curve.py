@@ -1,4 +1,4 @@
-"""BLS12-381 G1 group law on point batches: kernels 4 and 5.
+"""BLS12-381 G1 group law on point batches: kernels 4, 5 and 6.
 
 Port of `marlin_tpu/ops/pallas/curve.py`.  A point batch is a tuple
 (X, Y, Z) of `[.., 24]` int32 Fq Montgomery limb tensors, Jacobian,
@@ -14,7 +14,10 @@ tensor takes the plain version):
   each bucket lane's slots folded with the mixed add (`_jac_madd_planes`,
   or `_jac_madd_planes_fast`, which reports degeneracy instead of doubling),
   in FOLD_SUBROWS interleaved partial sums that a roll-halving tree of
-  complete adds joins.
+  complete adds joins;
+* `combine_windows`: Σ_w 2^(c·w)·T_w over a classic Pippenger's window sums
+  (`_combine_kernel`): window w doubled c·w times, then a halving tree of
+  complete adds.
 
 The plain versions follow the TPU formulas product for product over the
 plain Fq ops of ops/bigint.py (all canonical, so the grouping of a chain of
@@ -35,6 +38,9 @@ from . import cuda, fq
 # partial sums per bucket lane (csrc/curve.cu kSubRows: one warp per lane).
 # The Jacobian result of a fold depends on it; its affine result does not.
 FOLD_SUBROWS = 32
+# most window sums one combine takes (csrc/curve.cu kCombineThreads, and the
+# TPU kernel's lane tile)
+COMBINE_MAX = 128
 
 _CTX = fq.CTX
 _L = fq.L
@@ -208,6 +214,34 @@ def bucket_fold_plain(table: torch.Tensor, layout: torch.Tensor, exact: bool = F
     return tuple(a[:, 0].contiguous() for a in acc), deg.any(-1).sum()
 
 
+def _combine_operands(stacked):
+    """[W, 1] (or [W]) stacked Jacobian sums -> three [W, 24] tensors."""
+    W = stacked[0].shape[0]
+    if not 1 <= W <= COMBINE_MAX:
+        raise ValueError(f"combine_windows: {W} window sums, expected 1 to {COMBINE_MAX}")
+    return [t.reshape(W, _L) for t in stacked]
+
+
+def combine_windows_plain(stacked, c: int):
+    """Plain twin of kernel 6: see `combine_windows`."""
+    pts = [t.clone() for t in _combine_operands(stacked)]
+    W = pts[0].shape[0]
+    for k in range(c * (W - 1)):
+        w0 = k // c + 1  # the lanes w with c·w > k double at step k
+        for t, v in zip(pts, double_plain(tuple(t[w0:] for t in pts))):
+            t[w0:] = v
+    size = 1 << (W - 1).bit_length()
+    ident = _identity((size - W,), pts[0].device)
+    acc = [torch.cat([t, i]) for t, i in zip(pts, ident)]
+    s = size // 2
+    while s >= 1:
+        out = add_plain(tuple(a[:s] for a in acc), tuple(a[s : 2 * s] for a in acc))
+        for a, o in zip(acc, out):
+            a[:s] = o
+        s //= 2
+    return tuple(a[0:1].contiguous() for a in acc)
+
+
 # --------------------------------------------------------------------------
 # kernel wrappers (csrc/curve.cu)
 
@@ -280,6 +314,26 @@ def bucket_fold_kernel(table: torch.Tensor, layout: torch.Tensor, exact: bool = 
     return tuple(out), flags.sum()
 
 
+def combine_windows_kernel(stacked, c: int):
+    """Kernel 6: see `combine_windows`."""
+    coords = [t.contiguous() for t in _combine_operands(stacked)]
+    for i, t in enumerate(coords):
+        cuda.require_cuda_field_tensor(t, f"combine_windows coordinate {i}", _L)
+        if t.device != coords[0].device:
+            raise ValueError("combine_windows: coordinates on different devices")
+    if c < 0:
+        raise ValueError(f"combine_windows: window width {c}")
+    W = coords[0].shape[0]
+    out = [torch.empty((1, _L), dtype=torch.int32, device=coords[0].device) for _ in range(3)]
+    err = cuda.lib().marlin_combine_windows(
+        *(t.data_ptr() for t in coords), W, c, *(t.data_ptr() for t in out),
+        _CTX.kernel_params.ctypes.data_as(ctypes.c_void_p), cuda.stream_handle(out[0]),
+    )
+    cuda.LAUNCHES["combine_windows"] += 1
+    cuda.check(err, "combine_windows")
+    return tuple(out)
+
+
 # --------------------------------------------------------------------------
 # routed entry points
 
@@ -310,3 +364,17 @@ def bucket_fold(table: torch.Tensor, layout: torch.Tensor, exact: bool = False):
     if table.is_cuda:
         return bucket_fold_kernel(table, layout, exact)
     return bucket_fold_plain(table, layout, exact)
+
+
+def combine_windows(stacked, c: int):
+    """Σ_w 2^(c·w)·T_w over W <= 128 window sums -> a [1]-batch point.
+
+    stacked: (X, Y, Z) of [W, 1, 24] (or [W, 24]) Jacobian limbs.  Window w
+    doubles c·w times (Y = 0 or Z = 0 gives the identity, as `double`), then
+    lanes join in a halving tree of complete adds: at level s (powers of two
+    down from half the next power of two >= W), lane w < s takes lane w + s
+    where that lane exists.  The Jacobian result follows that order; its
+    affine point is the Horner sum's."""
+    if stacked[0].is_cuda:
+        return combine_windows_kernel(stacked, c)
+    return combine_windows_plain(stacked, c)

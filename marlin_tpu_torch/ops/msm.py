@@ -1,27 +1,41 @@
-"""Multi-scalar multiplication: the fixed-base table MSM and the host route.
+"""Multi-scalar multiplication: the classic Pippenger, the fixed-base table
+MSM and the host route.
 
-Port of `marlin_tpu/ops/msm.py`: its fixed-base table path (:505-990), the
-route of every commit and opening MSM of the prover on an SRS on the card,
-and the `MARLIN_TPU_HOST_MSM=1` branches (`msm` at :1064, `msm_many` at
-:1104-1112), the route of an SRS on the CPU.
+Port of `marlin_tpu/ops/msm.py` on one device.  Three routes, chosen by the
+caller's tensors and by whether it has a table:
 
-The table path.  All of a prove's MSMs run over the fixed SRS powers, so
-the windows of a Pippenger collapse into ONE signed-digit window over a
-table of 2^(c·w)-scaled copies of the powers (`build_fixed_table`).  Every
-job of a round is cut into balanced signed digits, its (window, point)
-entries are sorted into buckets (`_merged_layouts_batched`), kernel 5 sums
-each bucket (ops/curve.py::bucket_fold), and two Hillis-Steele scans of
-kernel-4 adds turn the bucket sums S_b into Σ_b b·S_b.  The top window spans
-only the modulus's high bits and folds apart with its own narrow bucket
-space.  Jobs under 512 points, and tails of at most `_TAIL_MAX` points past
-a `_FIXED_QUANT` boundary, run through one shared double-and-add ladder.
+* The classic Pippenger (`msm_pippenger`, msm.py:219-302, and its
+  fully-on-device twin `pippenger_device`, :445-492): unsigned radix-2^c
+  windows over the points themselves.  Each window's entries are sorted into
+  buckets on the card (`_window_layout_device`), kernel 5 sums each bucket
+  (ops/curve.py::bucket_fold over `pack_points_xy` rows of the points), two
+  Hillis-Steele scans of kernel-4 adds turn the bucket sums into
+  T_w = Σ_b b·S_b, and kernel 6 (ops/curve.py::combine_windows) adds up
+  Σ_w 2^(c·w)·T_w.  A window whose largest bucket would overflow its
+  capacity (the narrow top window, repeated scalars) takes masked sums
+  instead (`_skewed_windows`).  It carries the exact public `msm()` on the
+  card, `msm_many` without a table, and the exact rerun after a fold flag.
+* The table path (:505-990), the route of every commit and opening MSM of
+  the prover on an SRS on the card.  All of a prove's MSMs run over the
+  fixed SRS powers, so the windows collapse into ONE signed-digit window
+  over a table of 2^(c·w)-scaled copies of the powers
+  (`build_fixed_table`).  Every job of a round is cut into balanced signed
+  digits, its (window, point) entries are sorted into buckets
+  (`_merged_layouts_batched`), kernel 5 sums each bucket, and the same two
+  scans give Σ_b b·S_b.  The top window spans only the modulus's high bits
+  and folds apart with its own narrow bucket space.  Jobs under 512 points,
+  and tails of at most `_TAIL_MAX` points past a `_FIXED_QUANT` boundary,
+  run through one shared double-and-add ladder.
+* The host route (`MARLIN_TPU_HOST_MSM=1` in the JAX package: `msm` at
+  :1064, `msm_many` at :1104-1112): the native C Pippenger, for points on
+  the CPU.
 
 Correctness contract (msm.py:197-216): a bucket that overflows its
 capacity, and a fast mixed add that met P == Q, each leave a nonzero flag
-in `_FOLD_FLAGS`.  The caller reads the flags with its results
-(snark/kzg.py::_run_msm_jobs) and reruns the batch with exact=True, which
-takes the complete mixed add and raises every capacity to the largest
-bucket the layout pass found.
+in `_FOLD_FLAGS`.  The commit path reads the flags with its results
+(snark/kzg.py::_run_msm_jobs) and reruns the batch on the classic path with
+exact=True (complete mixed adds; no table, whose capacity model is what
+failed).  The public `msm()` checks the flags of its own call.
 """
 
 from __future__ import annotations
@@ -38,8 +52,12 @@ from . import bigint as bi
 from . import curve
 from . import curve_device as cd
 from . import fq, fr
+from .limbs import ints_to_limbs
 
 FR_BITS = P.FR_BITS
+
+# below this size the ladder beats the classic Pippenger (fewer launches)
+_PIPPENGER_MIN = 1 << 10
 
 
 def _host_msm(points: cd.Point, scalars_mont: torch.Tensor) -> cd.Point:
@@ -51,26 +69,70 @@ def _host_msm(points: cd.Point, scalars_mont: torch.Tensor) -> cd.Point:
     return cd.from_affine_ints([res], scalars_mont.device)
 
 
-def msm(points: cd.Point, scalars_mont: torch.Tensor) -> cd.Point:
-    """Σ_i s_i P_i -> single Jacobian point (shape [1]), on the host route.
+def msm(
+    points: cd.Point, scalars_mont: torch.Tensor, c: int | None = None, exact: bool = False
+) -> cd.Point:
+    """Σ_i s_i P_i -> single Jacobian point (shape [1]); always exact.
 
-    points: [n] Jacobian batch; scalars_mont: [n, 16] Fr Montgomery limbs."""
-    return _host_msm(points, scalars_mont)
+    points: [n] Jacobian batch (any Z; Z = 0 is the identity);
+    scalars_mont: [n, 16] Fr Montgomery limbs.  Points on the card run on
+    the card: the ladder below `_PIPPENGER_MIN` points, else the classic
+    Pippenger, which this call reruns with exact=True when a flag of its own
+    fired (msm.py:1048-1076).  Points on the CPU take the host route."""
+    if not points[0].is_cuda:
+        return _host_msm(points, scalars_mont)
+    if points[0].shape[0] < _PIPPENGER_MIN:
+        return msm_ladder(points, scalars_mont)
+    n_flags = len(_FOLD_FLAGS)
+    out = msm_pippenger(points, scalars_mont, c, exact=exact)
+    if not exact:
+        new = _FOLD_FLAGS[n_flags:]
+        del _FOLD_FLAGS[n_flags:]
+        if new and bool(torch.stack(new).any()):
+            out = msm_pippenger(points, scalars_mont, c, exact=True)
+    return out
 
 
 def msm_many(powers: cd.Point, jobs: list, exact: bool = False, table=None) -> list:
     """Several MSMs over slices of one point array.
 
     jobs: list of (offset, scalars_mont [n_j, 16]) — the points of job j are
-    powers[offset : offset+n_j].  With a FixedBaseTable (an SRS on the
-    card) the batch runs on the table path; without one (an SRS on the
-    CPU) each job runs on the host route."""
+    powers[offset : offset+n_j].  With a FixedBaseTable the batch runs on
+    the table path.  Without one, powers on the card run each job on the
+    classic Pippenger when the batch holds at least `_PIPPENGER_MIN` points,
+    else all jobs on one shared ladder with a tree reduction per job
+    (msm.py:1113-1139); powers on the CPU take the host route per job.
+    Fast-fold flags queue in `_FOLD_FLAGS` for the caller."""
+    if not jobs:
+        return []
     if table is not None:
         return msm_fixed_many(table, jobs, exact=exact)
-    return [
-        _host_msm(tuple(powers[i][off : off + scal.shape[0]] for i in range(3)), scal)
-        for off, scal in jobs
-    ]
+
+    def points_of(off, scal):
+        return tuple(powers[i][off : off + scal.shape[0]] for i in range(3))
+
+    if not powers[0].is_cuda:
+        return [_host_msm(points_of(off, scal), scal) for off, scal in jobs]
+    if sum(scal.shape[0] for _, scal in jobs) >= _PIPPENGER_MIN:
+        return [msm_pippenger(points_of(off, scal), scal, exact=exact) for off, scal in jobs]
+    parts = [points_of(off, scal) for off, scal in jobs]
+    pts = tuple(torch.cat([p[i] for p in parts]) for i in range(3))
+    scal = torch.cat([s for _, s in jobs])
+    muls = cd.scalar_mul_batch(pts, bi.from_mont(fr.CTX, scal), FR_BITS)
+    out, start = [], 0
+    for _, s in jobs:
+        stop = start + s.shape[0]
+        out.append(cd.tree_reduce_add(tuple(m[start:stop] for m in muls)))
+        start = stop
+    return out
+
+
+def fixed_base_powers(base_affine: tuple, scalar_ints: list, device) -> cd.Point:
+    """[s_0·G, s_1·G, ...] as a Jacobian batch on `device` — one batched
+    double-and-add (msm.py:1142)."""
+    base = cd.from_affine_ints([base_affine] * len(scalar_ints), device)
+    limbs = ints_to_limbs([s % P.R_MODULUS for s in scalar_ints], fr.L).astype(np.int32)
+    return cd.scalar_mul_batch(base, torch.as_tensor(limbs, device=base[0].device), FR_BITS)
 
 
 # --------------------------------------------------------------------------
@@ -272,9 +334,11 @@ def _hillis_scan_add(pts: cd.Point, reverse: bool) -> cd.Point:
     return pts
 
 
-def _single_window_kernel(xy: torch.Tensor, layouts: torch.Tensor, exact: bool):
-    """Σ_b b·S_b of every job's window: the bucket sums S_b of kernel 5
-    over lane-major layouts [J, nb, cap], then two scans.  -> ([J] totals,
+def _windows_kernel(xy: torch.Tensor, layouts: torch.Tensor, exact: bool):
+    """Σ_b b·S_b of J windows at once (msm.py:68-127): the bucket sums S_b
+    of kernel 5 over lane-major layouts [J, nb, cap] into the packed rows
+    `xy`, then two scans.  A window is a job's merged window on the table
+    path and one radix-2^c window on the classic path.  -> ([J] totals,
     flag count)."""
     J, nb, cap = layouts.shape
     buckets, flag = curve.bucket_fold(xy, layouts.reshape(J * nb, cap), exact)
@@ -287,6 +351,199 @@ def _single_window_kernel(xy: torch.Tensor, layouts: torch.Tensor, exact: bool):
     suffix = tuple(torch.cat([ident[i], s[1:]]) for i, s in enumerate(suffix))
     totals = _hillis_scan_add(suffix, reverse=False)
     return tuple(t[-1] for t in totals), flag
+
+
+# --------------------------------------------------------------------------
+# the classic Pippenger
+
+
+def _bucket_counts(d: torch.Tensor, nb: int) -> torch.Tensor:
+    """[rows, n] digits -> [rows, nb] int64 entries per bucket (bincount per row)."""
+    counts = torch.zeros((d.shape[0], nb), dtype=torch.int64, device=d.device)
+    return counts.scatter_add_(1, d, torch.ones_like(d))
+
+
+def _window_layout_device(d: torch.Tensor, nb: int, cap: int):
+    """Bucket layouts of unsigned-digit windows, computed on the device
+    (msm.py:321): [rows, n] int64 digits -> (lane-major layouts
+    [rows, nb, cap] int32 — slot j of bucket b holds k + 1 for the j-th
+    point k with digit b in index order, 0 = empty — and the spill count).
+
+    The JAX package's layout is slot-major with -1 for empty: the same
+    entries.  Digit 0 fills no bucket; entries past `cap` are left out and
+    counted in the spill."""
+    rows, n = d.shape
+    dev = d.device
+    d_sorted, order = torch.sort(d, dim=1, stable=True)
+    counts = _bucket_counts(d, nb)
+    starts = counts.cumsum(1) - counts
+    col = torch.arange(n, device=dev) - torch.gather(starts, 1, d_sorted)
+    keep = d_sorted != 0
+    valid = keep & (col < cap)
+    spill = (keep & ~valid).sum()
+    row = torch.arange(rows, device=dev)[:, None]
+    dump = rows * nb * cap  # one slot past the layouts takes the left-out entries
+    pos = torch.where(valid, (row * nb + d_sorted) * cap + col, dump)
+    layout = torch.zeros(dump + 1, dtype=torch.int32, device=dev)
+    layout.scatter_(0, pos.reshape(-1), (order + 1).to(torch.int32).reshape(-1))
+    return layout[:dump].reshape(rows, nb, cap), spill
+
+
+def _classic_top_shape(n: int, c: int, num_windows: int) -> tuple:
+    """(nb_top, cap_top) of the unsigned top window (msm.py:363): bucket
+    count from the modulus's high bits, capacity from the load model."""
+    # the table path's largest signed top digit, hi + 1, is the unsigned bucket count
+    nb_top, p_max = _top_digit_pmax(c, num_windows)
+    return nb_top, _load_cap(max(1.0, n * p_max))
+
+
+def _classic_shape(n: int, c: int) -> tuple:
+    """(num_windows, nb, cap) of the classic Pippenger: the capacity is
+    about twice the mean bucket load, in powers of two."""
+    nb = 1 << c
+    return -(-FR_BITS // c), nb, 1 << max(3, (2 * max(1, n // nb) - 1).bit_length())
+
+
+def _window_digits(points: cd.Point, scal16: torch.Tensor, c: int, windows) -> torch.Tensor:
+    """[len(windows), n] unsigned digits; identity points get digit 0, so
+    they fill no bucket (the fold implies Z = 1 for every filled slot)."""
+    ident = cd.is_identity(points)
+    d = torch.stack([_digits(scal16, c, w) for w in windows])
+    return torch.where(ident, 0, d)
+
+
+# windows of one fold launch: at most this many bucket slots
+_CLASSIC_MAX_SLOTS = 1 << 21
+# columns of one batch of masked sums: at most this many gathered points
+_MASKED_MAX_POINTS = 1 << 22
+
+
+def _fold_windows(xy: torch.Tensor, layouts: torch.Tensor, exact: bool) -> list:
+    """Window sums of [G, nb, cap] layouts, in launches of at most
+    `_CLASSIC_MAX_SLOTS` slots -> ([G] list of [1] points, [flag counts])."""
+    G, nb, cap = layouts.shape
+    group = max(1, min(G, _CLASSIC_MAX_SLOTS // (nb * cap)))
+    sums, flags = [], []
+    for start in range(0, G, group):
+        totals, flag = _windows_kernel(xy, layouts[start : start + group], exact)
+        flags.append(flag)
+        sums.extend(tuple(t[j : j + 1] for t in totals) for j in range(totals[0].shape[0]))
+    return sums, flags
+
+
+def _masked_digit_sums(points: cd.Point, d: torch.Tensor, cols: list) -> cd.Point:
+    """Σ of the points whose digit in row w of d is v, for each column
+    (w, v) -> [len(cols)] sums: one masked tree reduction, batched over the
+    columns (msm.py:167 reduces one value per call)."""
+    n = points[0].shape[0]
+    rows = torch.as_tensor([w for w, _ in cols], device=d.device)
+    vals = torch.as_tensor([v for _, v in cols], device=d.device)
+    mask = (d[rows] == vals[:, None]).T  # [n, C]
+    ident = cd.identity((1, 1), points[0].device)
+    sel = cd.select_point(mask, tuple(p[:, None] for p in points), ident)
+    return tuple(t[0] for t in cd.tree_reduce_add(sel))
+
+
+def _scale_by_values(parts: cd.Point, values: list) -> cd.Point:
+    """[C] points times their small values, by one batched double-and-add
+    from the top bit down (msm.py:187-192 per value)."""
+    dev = parts[0].device
+    v = torch.as_tensor(values, device=dev)
+    acc = cd.identity((len(values),), dev)
+    for k in range(max(values).bit_length() - 1, -1, -1):
+        acc = cd.double(acc)
+        bit = ((v >> k) & 1) == 1
+        acc = cd.select_point(bit, cd.add(acc, parts), acc)
+    return acc
+
+
+def _skewed_windows(points: cd.Point, d: torch.Tensor, counts: np.ndarray, rows: list) -> list:
+    """Windows whose digits take few distinct values (the narrow top window,
+    repeated scalars; msm.py:174-193): per (window, value) the masked sum of
+    its points, scaled by the value, then the window's values added up.
+    counts: the host's [W, nb] bucket counts.  -> [len(rows)] [1] points."""
+    cols = [(w, int(v)) for w in rows for v in np.flatnonzero(counts[w][1:]) + 1]
+    n = points[0].shape[0]
+    step = max(1, _MASKED_MAX_POINTS // max(n, 1))
+    scaled = []
+    for start in range(0, len(cols), step):
+        chunk = cols[start : start + step]
+        parts = _masked_digit_sums(points, d, chunk)
+        scaled.append(_scale_by_values(parts, [v for _, v in chunk]))
+    scaled = tuple(torch.cat([s[i] for s in scaled]) for i in range(3))
+    # [values of the widest window, windows], identity-padded, summed along axis 0
+    per = [[j for j, (w, _) in enumerate(cols) if w == r] for r in rows]
+    depth = max(len(p) for p in per)
+    pad = len(cols)
+    grid = torch.as_tensor([p + [pad] * (depth - len(p)) for p in per], device=d.device).T
+    ident = cd.identity((1,), points[0].device)
+    padded = tuple(torch.cat([s, i]) for s, i in zip(scaled, ident))
+    sums = cd.tree_reduce_add(tuple(t[grid] for t in padded))
+    return [tuple(t[0, j : j + 1] for t in sums) for j in range(len(rows))]
+
+
+def msm_pippenger(
+    points: cd.Point, scalars_mont: torch.Tensor, c: int | None = None, exact: bool = False
+) -> cd.Point:
+    """Classic windowed-bucket MSM (msm.py:219-302) -> [1] Jacobian point.
+
+    points: [n] Jacobian batch; scalars_mont: [n, 16] Fr Montgomery limbs.
+    One copy to the host per call carries every window's bucket counts (and
+    whether any point is off affine form, which one normalization then
+    fixes); windows whose largest bucket exceeds `cap` take
+    `_skewed_windows`, the rest fold on the device.  With exact=False the
+    fold's flags queue in `_FOLD_FLAGS`."""
+    n = points[0].shape[0]
+    if c is None:
+        # a mean bucket load of about 32-64 keeps a 2x capacity bound safe
+        c = min(13, max(6, n.bit_length() - 6))
+    num_windows, nb, cap = _classic_shape(n, c)
+    scal16 = bi.from_mont(fr.CTX, scalars_mont)
+    d = _window_digits(points, scal16, c, range(num_windows))
+    one = fq.CTX.const("one", points[2].device)
+    off_affine = ~((points[2] == one).all(-1) | cd.is_identity(points))
+    host = torch.cat([_bucket_counts(d, nb).reshape(-1), off_affine.any().reshape(1).to(torch.int64)]).cpu()
+    counts = host[:-1].reshape(num_windows, nb).numpy()
+    skewed = [w for w in range(num_windows) if counts[w, 1:].max(initial=0) > cap]
+    normal = [w for w in range(num_windows) if w not in skewed]
+
+    windows = [None] * num_windows
+    if normal:
+        aff = cd.normalize_batch(points) if bool(host[-1]) else points
+        layouts, _ = _window_layout_device(d[normal], nb, cap)  # no spill: skewed went apart
+        sums, flags = _fold_windows(curve.pack_points_xy(aff[0], aff[1]), layouts, exact)
+        if not exact:
+            _FOLD_FLAGS.extend(flags)
+        for w, pt in zip(normal, sums):
+            windows[w] = pt
+    if skewed:
+        for w, pt in zip(skewed, _skewed_windows(points, d, counts, skewed)):
+            windows[w] = pt
+    stacked = tuple(torch.stack([w[i] for w in windows]) for i in range(3))
+    return curve.combine_windows(stacked, c)
+
+
+def pippenger_device(points: cd.Point, scal16: torch.Tensor, c: int):
+    """The classic Pippenger with no copy to the host (msm.py:445-492).
+
+    points: [n] batch in affine form (Z in {0, 1}); scal16: canonical
+    [n, 16] limbs.  The top window folds apart with its own narrow bucket
+    space (`_classic_top_shape`); every other window at ~2x the mean load.
+    -> ([1] point, 0-d count of spilled entries and flagged lanes): the
+    caller reruns on an exact path when the count is not 0."""
+    n = points[0].shape[0]
+    num_windows, nb, cap = _classic_shape(n, c)
+    nb_top, cap_top = _classic_top_shape(n, c, num_windows)
+    xy = curve.pack_points_xy(points[0], points[1])
+    d = _window_digits(points, scal16, c, range(num_windows))
+    layouts, spill = _window_layout_device(d[:-1], nb, cap)
+    windows, flags = _fold_windows(xy, layouts, exact=False)
+    top_layout, top_spill = _window_layout_device(d[-1:], nb_top, cap_top)
+    top, top_flags = _fold_windows(xy, top_layout, exact=False)
+    windows += top
+    spill = spill + top_spill + sum(f.to(spill.dtype) for f in flags + top_flags)
+    stacked = tuple(torch.stack([w[i] for w in windows]) for i in range(3))
+    return curve.combine_windows(stacked, c), spill
 
 
 def _job_digits(table: FixedBaseTable, scal16: torch.Tensor, offsets: list):
@@ -316,7 +573,7 @@ def _window_sums(xy, bucket, enc, nb: int, cap: int, exact: bool):
         most = int(counts[:, :, 1:].sum(1).max())
         cap = max(cap, -(-most // 8) * 8)
     layouts, spill = _stitch_layouts(e_sorted, starts, counts, cap)
-    totals, flag = _single_window_kernel(xy, layouts, exact)
+    totals, flag = _windows_kernel(xy, layouts, exact)
     return totals, flag + spill
 
 

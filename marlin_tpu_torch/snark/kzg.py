@@ -16,16 +16,18 @@ Scheme math (MarlinKZG10 semantics):
   * check: e(ΣC' - v·g - r_v·γg, h) = e(W, βh - z·h), where a bounded
     poly's C' term is shifted_comm - v·β^(D-b)g
 
-Port of `marlin_tpu/snark/kzg.py` (MarlinKZG10 only).  The witness
-polynomials are Fr tensors on the SRS's device.  On an SRS on the card the
-MSMs run on the fixed-base table path of ops/msm.py (the table is built once
-per SRS); on an SRS on the CPU they take the host route.  The verifier's
-handful of group ops and the pairings run on the host (the verifier is
-succinct, SURVEY.md §3.4).
+Port of `marlin_tpu/snark/kzg.py`.  The witness polynomials are Fr tensors
+on the SRS's device.  On an SRS on the card the MSMs run on the fixed-base
+table path of ops/msm.py (the table is built once per SRS), or on the
+classic Pippenger where the table is switched off or over its budget; on an
+SRS on the CPU they take the host route.  The verifier's handful of group
+ops and the pairings run on the host (the verifier is succinct, SURVEY.md
+§3.4).
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 
 import torch
@@ -66,6 +68,10 @@ class UniversalParams:
     # host-side prefix of the gamma powers: blinding polynomials are tiny
     # (degree hiding_bound+1 = 2), so their MSMs run on the host
     host_gamma_powers: list = None
+    # negative powers of tau in G2 (neg_powers_of_h[i] = tau^-i * h, host
+    # affine), made at setup for Sonic SRSs as ark sonic_pc's
+    # UniversalParams carries them; the trapdoor itself never outlives setup
+    neg_powers_of_h: list | None = None
 
     def max_degree(self) -> int:
         return self.powers_of_g[0].shape[0] - 1
@@ -137,11 +143,15 @@ class BatchLCProof:
 # setup / trim
 
 
-def setup(max_degree: int, rng: ZkRng, device) -> UniversalParams:
+def setup(max_degree: int, rng: ZkRng, device, neg_powers_of_h: bool = False) -> UniversalParams:
     """Powers-of-τ generation (the trusted-setup artifact; reference
     PC::setup at src/lib.rs:93), host-side through the native fixed-base
-    routines (csrc/marlin_curve.c); the G1 powers land on `device`.  The
-    trapdoor τ is local to this function — it is never stored.
+    routines (csrc/marlin_curve.c); the G1 powers land on `device`.
+
+    With `neg_powers_of_h` the SRS also carries every negative power of τ
+    in G2 (ark sonic_pc's UniversalParams layout), so the Sonic variant's
+    trim works from the public SRS alone.  The trapdoor τ is local to this
+    function — it is never stored.
     """
     tau = rng.rand_fr()
     gamma = rng.rand_fr()
@@ -157,6 +167,13 @@ def setup(max_degree: int, rng: ZkRng, device) -> UniversalParams:
 
     h = hc.G2_GEN
     beta_h = hc.g2_mul(h, tau)
+    neg_h = None
+    if neg_powers_of_h:
+        tau_inv = pow(tau, -1, R)
+        neg_taus = [1] * (max_degree + 1)
+        for i in range(1, max_degree + 1):
+            neg_taus[i] = neg_taus[i - 1] * tau_inv % R
+        neg_h = hc.g2_fixed_base_powers(h, neg_taus)
     n_prefix = min(8, max_degree + 2)
     host_gamma = gamma_affine[:n_prefix]
     return UniversalParams(
@@ -167,6 +184,7 @@ def setup(max_degree: int, rng: ZkRng, device) -> UniversalParams:
         h=h,
         beta_h=beta_h,
         host_gamma_powers=host_gamma,
+        neg_powers_of_h=neg_h,
     )
 
 
@@ -238,18 +256,31 @@ def _ensure_host_powers(pp: UniversalParams) -> list | None:
     return pp._host_powers
 
 
+def msm_table_mb(n_powers: int) -> float:
+    """MB of the packed fixed-base table over n_powers powers: W·N rows of
+    24 32-bit words (the Jacobian blocks of the build are transient)."""
+    c = msm._fixed_c(n_powers)
+    return msm.fixed_table_windows(c) * n_powers * 24 * 4 / 1e6
+
+
 def _ensure_msm_table(pp: UniversalParams):
     """Fixed-base table over the G1 powers (ops/msm.msm_fixed_many), built
-    once per SRS and cached on the params; None for an SRS on the CPU,
-    whose MSMs take the host route."""
-    if pp.device.type != "cuda":
+    once per SRS and cached on the params (kzg.py:268-292).  None for an SRS
+    on the CPU, whose MSMs take the host route, and where the classic
+    Pippenger serves instead: with MARLIN_TPU_MSM_TABLE=0, or when the table
+    would exceed MARLIN_TPU_MSM_TABLE_MB (default 2400).  Both are read at
+    every call."""
+    if pp.device.type != "cuda" or os.environ.get("MARLIN_TPU_MSM_TABLE") == "0":
         return None
     table = getattr(pp, "_msm_table", None)
-    if table is None:
-        c = msm._fixed_c(pp.powers_of_g[0].shape[0])
-        with profiling.span("Precomputing fixed-base MSM table"):
-            table = pp._msm_table = msm.build_fixed_table(pp.powers_of_g, c)
-    return table
+    if table is not None:
+        return table
+    n = pp.powers_of_g[0].shape[0]
+    if msm_table_mb(n) > float(os.environ.get("MARLIN_TPU_MSM_TABLE_MB", "2400")):
+        return None
+    with profiling.span("Precomputing fixed-base MSM table"):
+        pp._msm_table = msm.build_fixed_table(pp.powers_of_g, msm._fixed_c(n))
+    return pp._msm_table
 
 
 # exact reruns of a commit batch after a fold flag fired (see _run_msm_jobs)
@@ -280,24 +311,35 @@ def _run_msm_jobs(ck: CommitterKey, jobs: list) -> list:
                 ints = fr.to_ints(scal)
                 out.append(hc.g1_msm(host_powers[off : off + len(ints)], ints))
             return out
-    table = _ensure_msm_table(ck.pp)
+    return _device_msm_jobs(ck.pp.powers_of_g, jobs, _ensure_msm_table(ck.pp))
+
+
+def _device_msm_jobs(powers: cd.Point, jobs: list, table) -> list:
+    """The jobs through ops/msm.msm_many -> host affine points, with the
+    points and the fold flags in one copy, and the exact rerun on a flag."""
     with profiling.span("msm jobs: dispatch"):
-        jacs = msm.msm_many(ck.pp.powers_of_g, jobs, table=table)
+        jacs = msm.msm_many(powers, jobs, table=table)
         stacked = tuple(torch.cat([p[i] for p in jacs], dim=0) for i in range(3))
     with profiling.span("msm jobs: result fetch + normalize"):
         affs, fired = _fetch_affine(stacked, msm.pending_fold_flags())
     if fired:
-        # a bucket overflowed its capacity (a degenerate scalar pattern) or
-        # a fast mixed add met P == Q: rerun the batch on the table path
-        # with complete mixed adds and every capacity raised to its
-        # largest bucket, so that neither can recur
-        print("[kzg] fold flag fired: exact table rerun", flush=True)
-        STATS["exact_reruns"] += 1
-        jacs = msm.msm_many(ck.pp.powers_of_g, jobs, exact=True, table=table)
-        stacked = tuple(torch.cat([p[i] for p in jacs], dim=0) for i in range(3))
-        affs, fired = _fetch_affine(stacked, msm.pending_fold_flags())
-        if fired:
-            raise PCError("the exact MSM rerun still reports a spill or a degenerate add")
+        affs = _exact_rerun(powers, jobs)
+    return affs
+
+
+def _exact_rerun(powers: cd.Point, jobs: list) -> list:
+    """After a fold flag — a table bucket overflowed its capacity (a
+    degenerate scalar pattern) or a fast mixed add met P == Q — the batch
+    reruns on the classic path with exact=True: no table (its capacity
+    model is what failed), complete mixed adds, and overflowing windows on
+    masked sums, so no flag can fire again (kzg.py:324-333)."""
+    print("[kzg] fold flag fired: exact classic rerun", flush=True)
+    STATS["exact_reruns"] += 1
+    jacs = msm.msm_many(powers, jobs, exact=True)
+    stacked = tuple(torch.cat([p[i] for p in jacs], dim=0) for i in range(3))
+    affs, fired = _fetch_affine(stacked, msm.pending_fold_flags())
+    if fired:
+        raise PCError("the exact MSM rerun still reports a degenerate add")
     return affs
 
 

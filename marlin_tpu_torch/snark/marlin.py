@@ -1,7 +1,7 @@
 """The Marlin driver: universal_setup / index / prove / verify.
 
-Port of `marlin_tpu/snark/marlin.py` (`Marlin` with MarlinKZG10; the Sonic
-variant is not ported yet).  Every entry point takes a `device`: None means
+Port of `marlin_tpu/snark/marlin.py`: `Marlin` over MarlinKZG10 and
+`MarlinSonic` over the Sonic-style PC (snark/sonic.py).  Every entry point takes a `device`: None means
 the card ("cuda"), and a machine without one raises unless the caller asks
 for "cpu".  Keys carry the device their tensors live on, and an entry point
 given keys on another device raises instead of moving them.
@@ -14,7 +14,7 @@ import torch
 from ..fields import active as P
 from ..utils import profiling
 from ..utils.rand import ZkRng
-from . import ahp, kzg, lc as lc_mod, prover as prover_mod, verifier as verifier_mod
+from . import ahp, kzg, lc as lc_mod, prover as prover_mod, sonic, verifier as verifier_mod
 from .data_structures import (
     IndexProverKey,
     IndexVerifierKey,
@@ -67,7 +67,10 @@ def _prefetch_evaluations(provider, polys, plan) -> None:
 
 
 class Marlin:
-    """Marlin<Fr, MarlinKZG10, SimpleHashFiatShamirRng<Blake2s, ChaCha>>."""
+    """Marlin<Fr, MarlinKZG10, SimpleHashFiatShamirRng<Blake2s, ChaCha>>.
+
+    The polynomial-commitment scheme is the `PC` class attribute (the
+    reference's `Marlin<F, PC, FS>` generics, src/lib.rs:64)."""
 
     PC = kzg
 
@@ -344,3 +347,9 @@ class Marlin:
                 opening_challenge,
                 rng,
             )
+
+
+class MarlinSonic(Marlin):
+    """Marlin over the Sonic-style PC (reference benches/bench.rs:79-84)."""
+
+    PC = sonic

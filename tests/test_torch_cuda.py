@@ -151,3 +151,57 @@ def test_curve_kernels_count_launches(dev):
     curve.bucket_fold(table, torch.tensor([[1, -2, 0, 3]], dtype=torch.int32, device=dev))
     assert cuda.LAUNCHES["g1_add"] == 1 and cuda.LAUNCHES["g1_double"] == 1
     assert cuda.LAUNCHES["bucket_fold"] == 1
+
+
+@pytest.mark.parametrize("c, W", [(10, 26), (2, 128)])
+def test_combine_windows_kernel_matches_plain(dev, c, W):
+    """Jacobian window sums (Z != 1) with identities among them."""
+    from marlin_tpu_torch.fields import host_curve as hc
+    from marlin_tpu_torch.ops import curve
+    from marlin_tpu_torch.ops import curve_device as cd
+
+    p = _curve_points(2 * W, 12, dev)
+    S = curve.add_kernel(cd.from_affine_ints(p[:W], dev), cd.from_affine_ints(p[W:], dev))
+    for t, i in zip(S, cd.identity((2,), dev)):
+        t[torch.as_tensor([0, W // 2], device=dev)] = i
+    stacked = tuple(t[:, None].contiguous() for t in S)
+    cuda.reset_launches()
+    got = curve.combine_windows_kernel(stacked, c)
+    assert cuda.LAUNCHES["combine_windows"] == 1
+    for k, q in zip(got, curve.combine_windows_plain(stacked, c)):
+        assert torch.equal(k, q)
+    sums = [None if w in (0, W // 2) else hc.g1_add(p[w], p[W + w]) for w in range(W)]
+    want = None
+    for w, s in enumerate(sums):
+        want = hc.g1_add(want, hc.g1_mul(s, 1 << (c * w)) if s else None)
+    assert cd.to_affine_ints(got) == [want]
+
+
+def test_public_msm_on_the_card_equals_the_host_msm(dev):
+    """Random scalars; 16 points repeated (the fast fold meets P == Q and
+    msm() reruns exactly); an identity and a point off affine form."""
+    from marlin_tpu_torch.fields import bls12_381 as P
+    from marlin_tpu_torch.fields import host_curve as hc
+    from marlin_tpu_torch.ops import curve_device as cd
+    from marlin_tpu_torch.ops import msm
+
+    rng = np.random.default_rng(13)
+    r, q = P.R_MODULUS, P.Q_MODULUS
+    base = _curve_points(1500, 14, dev)
+    cases = {
+        "random": base,
+        "duplicates": [base[i % 16] for i in range(2048)],
+        "identity_and_jacobian": base[:1200] + [None],
+    }
+    for name, affs in cases.items():
+        scal = [int.from_bytes(rng.bytes(40), "little") % r for _ in affs]
+        pts = cd.from_affine_ints(affs, dev)
+        if name == "identity_and_jacobian":
+            z = 0x1234567
+            x, y = affs[7]
+            for t, v in zip(pts, fq.from_ints([x * z * z % q, y * z**3 % q, z], dev)):
+                t[7] = v
+        cuda.reset_launches()
+        got = cd.to_affine_ints(msm.msm(pts, fr.from_ints(scal, dev)))
+        assert got == [hc.g1_msm(affs, scal)], name
+        assert cuda.LAUNCHES["combine_windows"] == (2 if name == "duplicates" else 1), name

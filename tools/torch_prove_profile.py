@@ -12,9 +12,13 @@ Builds the bench circuit (`DummyCircuit`, 2^log2 constraints, SRS sized by
   kernel name, their sum, and the device's busy share of the wall time;
 * each kernel alone at the main path's largest shape (2^16 Fr elements;
   2^16 points for the group law; the prove's largest fold, round 3's three
-  jobs of 2^16 - 1 scalars, for the bucket fold), 20 launches under the
-  profiler: its device time per launch, free of the wrapper's host overhead
-  that CUDA-event timing of a Python call includes.
+  jobs of 2^16 - 1 scalars, for the bucket fold; 26 window sums at c = 10,
+  the classic Pippenger's largest in that prove, for the window combine),
+  20 launches under the profiler: its device time per launch, free of the
+  wrapper's host overhead that CUDA-event timing of a Python call includes.
+
+With `MARLIN_TPU_MSM_TABLE=0` in the environment the proves take the
+classic Pippenger instead of the fixed-base table.
 
 Prints one JSON object (and writes it to `--out`).  Needs a CUDA device;
 imports nothing of JAX.
@@ -73,6 +77,7 @@ _KERNEL_SYMBOLS = {
     "g1_add (2^16 points)": "add_kernel",
     "g1_double (2^16 points)": "double_kernel",
     "bucket_fold (largest fold of the prove)": "fold_kernel<false>",
+    "combine_windows (c=10, W=26)": "combine_kernel",
 }
 
 
@@ -102,6 +107,8 @@ def _kernel_device_times(torch, reps: int = 20) -> dict:
     xy[:, 23] &= 0x0FFFFFFF
     table = msm.FixedBaseTable(xy, 10, 26, n)
     layout = fold_layout(torch, table, FOLD_JOBS, 11)
+    windows = tuple(torch.as_tensor(random_elements(np, rng, fq.CTX, 26), device=dev)[:, None]
+                    for _ in range(3))
     calls = {
         "field_binop (fr mul)": lambda: bi.binop_kernel("mul", fr.CTX, a, b),
         "field_inv (fr)": lambda: bi.inv_kernel(fr.CTX, a),
@@ -110,6 +117,7 @@ def _kernel_device_times(torch, reps: int = 20) -> dict:
         "g1_add (2^16 points)": lambda: curve.add_kernel(p, q),
         "g1_double (2^16 points)": lambda: curve.double_kernel(p),
         "bucket_fold (largest fold of the prove)": lambda: curve.bucket_fold_kernel(xy, layout),
+        "combine_windows (c=10, W=26)": lambda: curve.combine_windows_kernel(windows, 10),
     }
     out = {}
     for label, fn in calls.items():
