@@ -9,9 +9,11 @@ Phases, each printing one line of JSON:
 2. build   — compile the CUDA kernels (marlin_tpu_torch/csrc) from source;
 3. kernels — every kernel against its plain PyTorch version on the card,
    bit for bit, at the main path's shapes, with edge inputs (0, 1, N-1;
-   identity points, P + P, P + (-P); a fold that meets P == Q; identity
-   window sums, and 128 of them); each timed with CUDA events beside its
-   plain version;
+   identity points, P + P, P + (-P); the fold at the table and the classic
+   shape, each with its own sub-row count, fast and exact, and a lane that
+   meets P == Q; the ladder at the prove's 2 points and at 512, with
+   identity points and scalars 0, 1 and r - 1; identity window sums, and
+   128 of them); each timed with CUDA events beside its plain version;
 4. small   — a one-constraint circuit (SRS 32/32/96) proved under
    `test_rng()` on the CPU (plain versions) and on the card: equal proof
    bytes, the card's proof verifies, a wrong input and a flipped byte are
@@ -23,7 +25,8 @@ Phases, each printing one line of JSON:
    (`DummyCircuit`, SRS sized by `ahp.max_degree(n, n, 3n)`): setup, index,
    prove, verify, with phase and round seconds and each kernel's launch
    count, all of which but the window combine's must be above 0; the proof
-   must verify and be 855 B; the prove reruns no MSM and calls no host MSM;
+   must verify and be 855 B; the prove reruns no MSM, calls no host MSM,
+   and runs its ladder in one scalar_mul launch and no doubling launch;
 7. classic — the same prove from the same rng state with
    `MARLIN_TPU_MSM_TABLE=0`, every MSM on the classic Pippenger: equal
    proof bytes, the window combine launched once per MSM job, no host MSM
@@ -40,9 +43,12 @@ Phases, each printing one line of JSON:
    card (equal proof bytes), then at 2^14 on the card: the proof verifies
    at 759 B, with no host MSM call.
 
-Then the kernel table, the card's name and power limit, and, as the last
-line, `{"ok": true, "device": {...}}`.  Any failure exits nonzero before
-that line.  Needs one CUDA device and the repository beside this script;
+The build phase also records each curve kernel's registers, stack frame and
+spills (`ptxas -v`, which must show no spill), and the integer multiplies of
+one Fq and one Fr product in this build's SASS (tools/sass_count.py), which
+the operation bounds use.  Then the kernel table, the card's name and power
+limit, and, as the last line, `{"ok": true, "device": {...}}`.  Any failure
+exits nonzero before that line.  Needs one CUDA device and the repository beside this script;
 imports nothing of JAX.  `--out` also writes every phase's record to PATH.
 """
 
@@ -61,11 +67,17 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks used for bounds (NVIDIA data sheet): HBM bandwidth, and the 67 T/s float32 rate outside the tensor
-# cores, taken as the ceiling for 32-bit integer multiplies (a lower bound on
-# the time; the card's integer multiply rate is below it).
+# Peaks used for bounds.  HBM bandwidth: 3.35 TB/s (NVIDIA's H100 SXM data
+# sheet).  Operations: the kernels' work is 32-bit integer multiply-adds,
+# which a compute-capability-9.0 SM completes at 64 a clock (CUDA C++
+# Programming Guide, table "Throughput of Native Arithmetic Instructions":
+# 32-bit integer multiply, multiply-add, extended-precision multiply-add);
+# times the card's SMs and its maximum SM clock as nvidia-smi reports it
+# (set in main).  The multiplies of one product come from this build's SASS.
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = 67e12
+IMAD_PER_CLOCK_PER_SM = 64
+PEAK_OPS_PER_S = None
+MULS_PER_PRODUCT: dict = {}  # "fr" / "fq" -> integer multiplies in one Montgomery product
 
 # the main path's shapes: |H| = 2^14 constraints, |K| = the mul domain = 2^16
 MAIN_LOG2 = 14
@@ -77,6 +89,8 @@ NTT_CROSS_STAGE = 15
 # kernel 4 at the table build's width; kernel 5 at the 2^14 prove's largest
 # fold: round 3's three jobs of 2^16 - 1 scalars (offsets 0, 1, 0)
 CURVE_N = 1 << 16
+SCAN_N = 3 * 513  # the Hillis scans' points: round 3's 3 jobs x 513 buckets
+LADDER_N, LADDER_WIDE_N = 2, 512  # the prove's shared ladder (round 1's two tails), and wider
 FOLD_JOBS = ((0, (1 << 16) - 1), (1, (1 << 16) - 1), (0, (1 << 16) - 1))
 MEDIUM_LOG2 = 11
 REPEATED_N = 1 << 14  # points of the msm phase's repeated-scalar job
@@ -135,13 +149,79 @@ def bound(nbytes: float, ops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def mont_mul_ops(nl: int) -> int:
-    """32-bit multiplies in one CIOS product over nl limbs."""
-    return 2 * nl * nl + nl
+def product_ops(field: str, products: float) -> float:
+    """Integer multiplies of `products` Montgomery products over Fr or Fq."""
+    return products * MULS_PER_PRODUCT[field]
+
+
+def integer_peak(torch) -> dict:
+    """The card's 32-bit integer multiply rate: 64 a clock on each SM at its
+    maximum SM clock (nvidia-smi clocks.max.sm)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    return {"sms": sms, "max_sm_clock_mhz": mhz, "imad_per_clock_per_sm": IMAD_PER_CLOCK_PER_SM,
+            "ops_per_s": IMAD_PER_CLOCK_PER_SM * sms * mhz * 1e6}
+
+
+def ptxas_report(path: str) -> dict:
+    """`ptxas -v` of one source -> kernel symbol -> registers, stack frame
+    and spill bytes."""
+    import re
+
+    out, name = {}, None
+    for line in open(path):
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            out[name].update(stack_frame=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
+# the curve kernels whose ptxas report must show no spill, by symbol fragment
+NO_SPILL = {"g1_add": "add_kernel", "g1_double": "double_kernel", "g1_scalar_mul": "scalar_mul_kernel",
+            "bucket_fold": "fold_kernelILb0E", "bucket_fold_exact": "fold_kernelILb1E"}
+
+
+def phase_build(torch) -> dict:
+    """Build the kernels; record the curve kernels' registers and spills and
+    the multiplies of one product."""
+    global PEAK_OPS_PER_S
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import sass_count
+
+    from marlin_tpu_torch.ops import cuda, curve
+
+    secs = cuda.build()
+    cuda.lib()
+    report = ptxas_report(os.path.join(cuda._BUILD_DIR, "curve.cu.ptxas.txt"))
+    ptxas = {}
+    for label, frag in NO_SPILL.items():
+        hits = [v for k, v in report.items() if frag in k and "registers" in v]
+        require(len(hits) == 1, f"ptxas: {len(hits)} reports for {label}")
+        ptxas[label] = hits[0]
+        require(hits[0].get("spill_stores", 0) == 0 and hits[0].get("spill_loads", 0) == 0,
+                f"ptxas: {label} spills: {hits[0]}")
+    sass = sass_count.count(cuda._SO)
+    for field in ("fr", "fq"):
+        MULS_PER_PRODUCT[field] = sass["product"][field]["multiplies"]
+    peak = integer_peak(torch)
+    PEAK_OPS_PER_S = peak["ops_per_s"]
+    return {"seconds": secs, "ptxas": ptxas, "runtime": curve.kernel_info(),
+            "product_sass": {f: {k: v for k, v in r.items() if k != "binop_mul_kernel"}
+                             for f, r in sass["product"].items()},
+            "integer_peak": peak}
 
 
 FQ_BYTES = 96  # one Fq element in the int32 limb layout (24 words)
-FQ_MUL_OPS = mont_mul_ops(12)
 
 
 # --------------------------------------------------------------------------
@@ -181,10 +261,16 @@ def phase_kernels(torch, np) -> dict:
             torch.cuda.synchronize()
             checks.append({"field": ctx.name, "op": kind, "n": n, "max_abs_err": e})
             binop_err = max(binop_err, e)
+        # a product with one operand below R but not below N (to_mont of raw limbs)
+        raw = torch.as_tensor(rng.integers(0, 1 << 16, size=(n, ctx.L), dtype=np.int64).astype(np.int32),
+                              device=dev)
+        e = err(bi.binop_kernel("mul", ctx, raw, b), bi.mont_mul(ctx, raw, b))
+        checks.append({"field": ctx.name, "op": "mul, a < R", "n": n, "max_abs_err": e})
+        binop_err = max(binop_err, e)
     n16 = FR_N
     a16 = torch.as_tensor(random_elements(np, rng, fr.CTX, n16), device=dev)
     b16 = torch.as_tensor(random_elements(np, rng, fr.CTX, n16), device=dev)
-    b_bytes, b_by = bound(3 * n16 * 64, n16 * mont_mul_ops(8))
+    b_bytes, b_by = bound(3 * n16 * 64, product_ops("fr", n16))
     results["field_binop"] = {
         "route": "cuda", "source": "marlin_tpu_torch/csrc/field.cu",
         "replaces": "marlin_tpu/ops/pallas/field.py:101",
@@ -208,7 +294,7 @@ def phase_kernels(torch, np) -> dict:
     require(bool((prod[nz] == one).all()), "x * inv(x) != 1")
     e_bits = fr.CTX.inv_exp_bits
     inv_muls = len(e_bits) + int(e_bits.sum())
-    b_ms, b_by = bound(2 * n16 * 64, n16 * inv_muls * mont_mul_ops(8))
+    b_ms, b_by = bound(2 * n16 * 64, product_ops("fr", n16 * inv_muls))
     results["field_inv"] = {
         "route": "cuda", "source": "marlin_tpu_torch/csrc/field.cu",
         "replaces": "marlin_tpu/ops/pallas/field.py:126",
@@ -245,7 +331,7 @@ def phase_kernels(torch, np) -> dict:
     e_cross = err(ntt.cross_stage_kernel(base.clone(), tw, s_top), ntt.cross_stage_plain(base, tw, s_top))
     scratch = base.clone()
     blk_bytes = 2 * n16 * 64 + ((1 << log_b) - 1) * 64
-    b_ms, b_by = bound(blk_bytes, (n16 // 2) * log_b * mont_mul_ops(8))
+    b_ms, b_by = bound(blk_bytes, product_ops("fr", (n16 // 2) * log_b))
     results["ntt_block_stages"] = {
         "route": "cuda", "source": "marlin_tpu_torch/csrc/ntt.cu",
         "replaces": "marlin_tpu/ops/pallas/ntt.py:91",
@@ -255,7 +341,7 @@ def phase_kernels(torch, np) -> dict:
         "plain_ms": time_ms(torch, lambda: ntt.block_stages_plain(base, tw, log_b), reps=5),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     }
-    b_ms, b_by = bound(2 * n16 * 64 + (1 << s_top) * 64, (n16 // 2) * mont_mul_ops(8))
+    b_ms, b_by = bound(2 * n16 * 64 + (1 << s_top) * 64, product_ops("fr", n16 // 2))
     results["ntt_cross_stage"] = {
         "route": "cuda", "source": "marlin_tpu_torch/csrc/ntt.cu",
         "replaces": "marlin_tpu/ops/pallas/ntt.py:91",
@@ -268,7 +354,7 @@ def phase_kernels(torch, np) -> dict:
     # kernel 7 of the TPU package: mont_mul on [4096, 16] (an entry into kernel 1)
     ma = torch.as_tensor(random_elements(np, rng, fr.CTX, MONT_N), device=dev)
     mb = torch.as_tensor(random_elements(np, rng, fr.CTX, MONT_N), device=dev)
-    b_ms, b_by = bound(3 * MONT_N * 64, MONT_N * mont_mul_ops(8))
+    b_ms, b_by = bound(3 * MONT_N * 64, product_ops("fr", MONT_N))
     results["mont_mul"] = {
         "route": "cuda", "source": "marlin_tpu_torch/csrc/field.cu",
         "replaces": "marlin_tpu/ops/pallas/mont.py:83",
@@ -361,25 +447,35 @@ def phase_curve_kernels(torch, np) -> dict:
     e_add = max(e_add, err(curve.add_kernel(S, B), curve.add_plain(S, B)))
     e_dbl = max(err(curve.double_kernel(S), curve.double_plain(S)),
                 err(curve.double_kernel(A), curve.double_plain(A)))
+    # the bucket scans' size: 3 windows of 513 buckets (the 2^14 prove's round 3)
+    Ss, Bs = (tuple(t[:SCAN_N].contiguous() for t in p) for p in (S, B))
+    e_scan = max(err(curve.add_kernel(Ss, Bs), curve.add_plain(Ss, Bs)),
+                 err(curve.double_kernel(Ss), curve.double_plain(Ss)))
     n = CURVE_N
-    b_ms, b_by = bound(9 * n * FQ_BYTES, n * 16 * FQ_MUL_OPS)
+    b_ms, b_by = bound(9 * n * FQ_BYTES, product_ops("fq", n * 16))
+    s_ms, s_by = bound(9 * SCAN_N * FQ_BYTES, product_ops("fq", SCAN_N * 16))
     results["g1_add"] = {
         "route": "cuda", "source": "marlin_tpu_torch/csrc/curve.cu",
         "replaces": "marlin_tpu/ops/pallas/curve.py:201",
-        "max_abs_err": e_add, "shape": f"[{n}] Jacobian + Jacobian",
+        "max_abs_err": max(e_add, e_scan), "shape": f"[{n}] Jacobian + Jacobian",
         "ms": time_ms(torch, lambda: curve.add_kernel(S, B)),
         "plain_ms": time_ms(torch, lambda: curve.add_plain(S, B), reps=3, warmup=1),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "scans": {"shape": f"[{SCAN_N}] Jacobian + Jacobian", "max_abs_err": e_scan,
+                  "ms": time_ms(torch, lambda: curve.add_kernel(Ss, Bs)),
+                  "plain_ms": time_ms(torch, lambda: curve.add_plain(Ss, Bs), reps=3, warmup=1),
+                  "bound_ms": s_ms, "bound_by": s_by},
     }
-    b_ms, b_by = bound(6 * n * FQ_BYTES, n * 7 * FQ_MUL_OPS)
+    b_ms, b_by = bound(6 * n * FQ_BYTES, product_ops("fq", n * 7))
     results["g1_double"] = {
         "route": "cuda", "source": "marlin_tpu_torch/csrc/curve.cu",
         "replaces": "marlin_tpu/ops/pallas/curve.py:201",
-        "max_abs_err": e_dbl, "shape": f"[{n}] Jacobian",
+        "max_abs_err": max(e_dbl, e_scan), "shape": f"[{n}] Jacobian",
         "ms": time_ms(torch, lambda: curve.double_kernel(S)),
         "plain_ms": time_ms(torch, lambda: curve.double_plain(S), reps=3, warmup=1),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     }
+    results["g1_scalar_mul"] = scalar_mul_row(torch, np, pts, S)
 
     # kernel 5: the table of these points at the 2^14 prove's c, its largest fold
     c = msm._fixed_c(n)
@@ -391,63 +487,114 @@ def phase_curve_kernels(torch, np) -> dict:
     require(got == [hc.g1_mul(pts[r % n], 1 << (c * (r // n))) for r in rows],
             "build_fixed_table: rows differ from the host's 2^(c w) P")
     layout = fold_layout(torch, table, FOLD_JOBS, 11)
-    checks = []
-    e_fold = 0
-    for exact in (False, True):
-        kp, kf = curve.bucket_fold_kernel(table.xy, layout, exact)
-        pp, pf = curve.bucket_fold_plain(table.xy, layout, exact)
-        e = max(err(kp, pp), abs(int(kf) - int(pf)))
-        checks.append({"exact": exact, "lanes": layout.shape[0], "cap": layout.shape[1],
-                       "flags": int(kf), "max_abs_err": e})
-        e_fold = max(e_fold, e)
-    # a lane whose sub-row meets P == Q: the fast fold flags it, the exact one sums it
-    small = torch.zeros((4, 3 * curve.FOLD_SUBROWS), dtype=torch.int32, device=dev)
-    small[:, :40] = torch.arange(1, 41, device=dev, dtype=torch.int32)
-    small[2, 5] = small[2, 5 + curve.FOLD_SUBROWS] = -17
-    for exact in (False, True):
-        kp, kf = curve.bucket_fold_kernel(table.xy, small, exact)
-        pp, pf = curve.bucket_fold_plain(table.xy, small, exact)
-        e = max(err(kp, pp), abs(int(kf) - int(pf)))
-        require(int(kf) == (0 if exact else 1), f"bucket_fold flag {int(kf)} with exact={exact}")
-        checks.append({"exact": exact, "lanes": 4, "cap": small.shape[1], "flags": int(kf),
-                       "max_abs_err": e})
-        e_fold = max(e_fold, e)
-    def fold_bound(lay):
-        filled = int((lay != 0).sum())
-        lanes, cap = lay.shape
-        return filled, bound(filled * FQ_BYTES + lanes * cap * 4 + lanes * (3 * FQ_BYTES + 4),
-                             filled * 11 * FQ_MUL_OPS)
-
     # the classic Pippenger's largest fold launch: 16 windows of the 2^14
     # prove's 65,535-point MSMs (c = 10, cap 128) over the points themselves
     classic = classic_fold_layout(torch, np, pts, 12)
     xy = curve.pack_points_xy(*cd.from_affine_ints(pts, dev)[:2])
-    kp, kf = curve.bucket_fold_kernel(xy, classic)
-    pp, pf = curve.bucket_fold_plain(xy, classic)
-    e = max(err(kp, pp), abs(int(kf) - int(pf)))
-    checks.append({"exact": False, "lanes": classic.shape[0], "cap": classic.shape[1],
-                   "flags": int(kf), "max_abs_err": e, "classic": True})
-    e_fold = max(e_fold, e)
-    c_filled, (c_ms, _) = fold_bound(classic)
+    # a lane whose sub-row meets P == Q: the fast fold flags it, the exact one sums it
+    small = torch.zeros((4, 3 * curve.FOLD_SUBROWS), dtype=torch.int32, device=dev)
+    small[:, :40] = torch.arange(1, 41, device=dev, dtype=torch.int32)
+    small[2, 5] = small[2, 5 + curve.FOLD_SUBROWS] = -17
+    checks = []
+    e_fold = 0
+    for name, tbl, lay in (("table", table.xy, layout), ("classic", xy, classic), ("p_eq_q", table.xy, small)):
+        for exact in (False, True):
+            kp, kf = curve.bucket_fold_kernel(tbl, lay, exact)
+            pp, pf = curve.bucket_fold_plain(tbl, lay, exact)
+            e = max(err(kp, pp), abs(int(kf) - int(pf)))
+            if name == "p_eq_q":
+                require(int(kf) == (0 if exact else 1), f"bucket_fold flag {int(kf)} with exact={exact}")
+            checks.append({"layout": name, "exact": exact, "lanes": lay.shape[0], "cap": lay.shape[1],
+                           "subrows": curve.fold_subrows(*lay.shape), "flags": int(kf), "max_abs_err": e})
+            e_fold = max(e_fold, e)
+    require(curve.fold_subrows(*layout.shape) == curve.FOLD_SUBROWS, "the table fold left 32 sub-rows")
+
+    def fold_bound(lay):
+        filled = int((lay != 0).sum())
+        lanes, cap = lay.shape
+        return filled, bound(filled * FQ_BYTES + lanes * cap * 4 + lanes * (3 * FQ_BYTES + 4),
+                             product_ops("fq", filled * 11))
+
+    c_filled, (c_ms, c_by) = fold_bound(classic)
     filled, (b_ms, b_by) = fold_bound(layout)
     lanes, cap = layout.shape
     results["bucket_fold"] = {
         "route": "cuda", "source": "marlin_tpu_torch/csrc/curve.cu",
         "replaces": "marlin_tpu/ops/pallas/curve.py:414",
         "max_abs_err": e_fold, "checks": checks,
-        "shape": f"[{lanes}, {cap}] layout ({len(FOLD_JOBS)} jobs, c={c}), {filled} filled slots",
+        "shape": f"[{lanes}, {cap}] layout ({len(FOLD_JOBS)} jobs, c={c}), {filled} filled slots, "
+                 f"{curve.fold_subrows(lanes, cap)} sub-rows",
         "ms": time_ms(torch, lambda: curve.bucket_fold_kernel(table.xy, layout)),
         "plain_ms": time_ms(torch, lambda: curve.bucket_fold_plain(table.xy, layout), reps=1, warmup=0),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "classic": {"shape": f"{list(classic.shape)} layout, {c_filled} filled slots",
+        "classic": {"shape": f"{list(classic.shape)} layout, {c_filled} filled slots, "
+                             f"{curve.fold_subrows(*classic.shape)} sub-rows",
                     "ms": time_ms(torch, lambda: curve.bucket_fold_kernel(xy, classic)),
-                    "bound_ms": c_ms},
+                    "bound_ms": c_ms, "bound_by": c_by},
     }
     results["combine_windows"] = combine_windows_row(torch, np, pts)
     torch.cuda.synchronize()
     for name, r in results.items():
         require(r["max_abs_err"] == 0, f"{name} disagrees with its plain version: {r}")
     return results
+
+
+def scalar_mul_row(torch, np, pts, jac) -> dict:
+    """Kernel 4's ladder at the 2^14 prove's shape (the two one-scalar tails
+    of round 1: 2 points, 255 bits) and at 512 points with identity points,
+    a Jacobian point and the scalars 0, 1 and r - 1."""
+    from marlin_tpu_torch.fields import bls12_381 as P
+    from marlin_tpu_torch.fields import host_curve as hc
+    from marlin_tpu_torch.ops import curve
+    from marlin_tpu_torch.ops import curve_device as cd
+    from marlin_tpu_torch.ops.limbs import ints_to_limbs
+    from marlin_tpu_torch.utils.rand import ZkRng
+
+    dev = torch.device(DEV)
+    r = P.R_MODULUS
+
+    def err(ks, ps) -> int:
+        return max(int((k.to(torch.int64) - p.to(torch.int64)).abs().max().item()) for k, p in zip(ks, ps))
+
+    def case(n, seed):
+        ks = ZkRng(seed).rand_fr_list(n)
+        affs = list(pts[:n])
+        if n > 4:
+            ks[:4] = [0, 1, r - 1, r - 1]
+            affs[3] = affs[9] = None
+        P_ = cd.from_affine_ints(affs, dev)
+        for t, j in zip(P_, jac):  # one point off affine form
+            t[n - 1] = j[n - 1]
+        affs[n - 1] = cd.to_affine_ints(tuple(t[n - 1 : n] for t in jac))[0]
+        scal = torch.as_tensor(ints_to_limbs(ks, 16).astype(np.int32), device=dev)
+        return P_, scal, affs, ks
+
+    out = {}
+    for label, n in (("ladder", LADDER_N), ("wide", LADDER_WIDE_N)):
+        P_, scal, affs, ks = case(n, 300 + n)
+        got = curve.scalar_mul_kernel(P_, scal, P.FR_BITS)
+        e = err(got, curve.scalar_mul_plain(P_, scal, P.FR_BITS))
+        torch.cuda.synchronize()
+        check = min(n, 12)
+        require(cd.to_affine_ints(tuple(t[:check] for t in got))
+                == [hc.g1_mul(p, k) if p else None for p, k in zip(affs[:check], ks[:check])],
+                f"g1_scalar_mul: affine multiples differ from the host's ({label})")
+        adds = sum(bin(k).count("1") for k in ks)
+        b_ms, b_by = bound(n * (6 * FQ_BYTES + 64), product_ops("fq", n * P.FR_BITS * 7 + adds * 16))
+        out[label] = {
+            "shape": f"[{n}] points x {P.FR_BITS} bits", "max_abs_err": e,
+            "ms": time_ms(torch, lambda: curve.scalar_mul_kernel(P_, scal, P.FR_BITS), reps=5),
+            "plain_ms": time_ms(torch, lambda: curve.scalar_mul_plain(P_, scal, P.FR_BITS), reps=1, warmup=0),
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+    row = out["ladder"]
+    return {
+        "route": "cuda", "source": "marlin_tpu_torch/csrc/curve.cu",
+        "replaces": "marlin_tpu/ops/pallas/curve.py:201",
+        "max_abs_err": max(row["max_abs_err"], out["wide"]["max_abs_err"]), "shape": row["shape"],
+        "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": None, "wide": out["wide"],
+    }
 
 
 def combine_windows_row(torch, np, pts) -> dict:
@@ -488,7 +635,7 @@ def combine_windows_row(torch, np, pts) -> dict:
     checks.append({"c": 2, "W": curve.COMBINE_MAX, "max_abs_err": e_wide})
     # the chain of the longest lane, and all lanes' doublings (7 products each)
     doublings = c * W * (W - 1) // 2
-    b_ms, b_by = bound((W + 1) * 3 * FQ_BYTES, doublings * 7 * FQ_MUL_OPS)
+    b_ms, b_by = bound((W + 1) * 3 * FQ_BYTES, product_ops("fq", doublings * 7))
     return {
         "route": "cuda", "source": "marlin_tpu_torch/csrc/curve.cu",
         "replaces": "marlin_tpu/ops/pallas/curve.py:476",
@@ -677,6 +824,12 @@ def phase_main(torch) -> tuple:
     for k, v in launches.items():
         # the window combine serves the classic Pippenger only: phase classic
         require(v > 0 or k == "combine_windows", f"kernel {k} was not launched on the main path")
+    # the prove's ladder (round 1's tails) is one launch; on the table route
+    # it was the prove's only caller of the doubling kernel
+    require(prove_launches["g1_scalar_mul"] == 1,
+            f"the 2^14 prove launched the ladder {prove_launches['g1_scalar_mul']} times, expected once")
+    require(prove_launches["g1_double"] == 0,
+            f"the 2^14 prove launched the doubling {prove_launches['g1_double']} times, expected none")
     require(prove_reruns == 0, f"the 2^14 prove reran {prove_reruns} MSM batches")
     require(seen["host_calls"] == 0, f"the 2^14 prove called the host MSM {seen['host_calls']} times")
     state = {"pk": pk, "vk": vk, "circ": circ, "public": public, "rng": rng_at_prove,
@@ -932,11 +1085,7 @@ def main() -> int:
               "torch": torch.__version__, "cuda": torch.version.cuda})
 
         phase = "build"
-        from marlin_tpu_torch.ops import cuda
-
-        secs = cuda.build()
-        cuda.lib()
-        emit({"phase": "build", "seconds": secs})
+        emit({"phase": "build", **phase_build(torch)})
 
         phase = "kernels"
         kernels = phase_kernels(torch, np)

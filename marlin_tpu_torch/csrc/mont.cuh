@@ -1,14 +1,34 @@
 // Montgomery field arithmetic for the Hopper kernels: the __device__ core
-// shared by field.cu (binop, inversion) and ntt.cu (butterfly stages).
+// (kernel 0) shared by field.cu (binop, inversion), ntt.cu (butterfly
+// stages) and curve.cu (group law, bucket fold, window combine).
 //
 // Replaces the in-kernel core of the TPU package,
 // marlin_tpu/ops/pallas/core.py: mm_mul_cios (:32), _finalize (:158) and
 // mm_add / mm_sub / mm_select (:188-229).  The TPU core works on 16 x 16-bit
 // limbs in u32 lanes because the VPU has no widening multiply; here an element
-// is NL 32-bit limbs (8 for Fr, 12 for Fq) and every limb product is one
-// 32x32->64 multiply.  R stays 2^(32 NL) = 2^256 / 2^384, so the Montgomery
-// residues are the same numbers, and the outputs are canonical (< N) like the
-// TPU's _finalize, so they agree limb for limb.
+// is NL 32-bit limbs (8 for Fr, 12 for Fq).  R stays 2^(32 NL) = 2^256 /
+// 2^384, so the Montgomery residues are the same numbers, and the outputs
+// are canonical (< N) like the TPU's _finalize, so they agree limb for limb.
+//
+// The modulus is a compile-time constant: a traits struct per field (FqTraits,
+// FrTraits: limbs, -N^{-1} mod 2^32, R mod N) templates every function, so
+// no modulus limb is ever loaded from memory and none crosses a call; the
+// limbs become immediates of the multiply-adds.  The products are CIOS in
+// the even/odd form of Emmart and Weems (as in the sppark library's mont_t):
+// the running sum is two NL-word accumulators, `even` for the products
+// a_j b_i of even j and `odd` (one word up) for odd j, so that each product
+// lands in two adjacent words of one accumulator and a whole row is one
+// PTX carry chain of mad.lo.cc / madc.hi.cc pairs; each row also adds
+// m N the same way and shifts by one word by swapping the accumulators'
+// roles.  Both moduli leave the top bit of their top limb clear (381 and 255
+// bits).  The odd accumulator's carry out of its top word is kept as a word
+// of its own (it is nonzero only when an operand is not canonical, as in
+// to_mont of a raw 256-bit value); every other carry that the chains drop
+// is zero, and the merged result is below 2N, for a * b < N R (checked word
+// for word by an emulation of these chains against Python integers when
+// this was written, for canonical operands and for one operand below R);
+// the final conditional subtraction keeps every output canonical.  The carry flag lives between `asm volatile` statements, which
+// the compiler keeps in order; no PTX instruction between them touches it.
 //
 // In global memory an element keeps the package's API layout: 2 NL int32
 // words, each holding one 16-bit limb.  fe_load / fe_store pack and unpack
@@ -19,8 +39,10 @@
 
 #define MARLIN_MAX_NL 12
 
-// Per-modulus constants, passed by value to every kernel.  Layout matches
-// ModCtx.kernel_params in marlin_tpu_torch/ops/bigint.py (38 words).
+// The per-modulus words that the Python side passes (ModCtx.kernel_params in
+// marlin_tpu_torch/ops/bigint.py, 38 words).  The kernels compute with the
+// traits below; the host entries of field.cu and ntt.cu check these words
+// against them, so a context that does not match a compiled field is refused.
 struct ModParams {
   uint32_t n[MARLIN_MAX_NL];    // modulus N
   uint32_t np0;                 // -N^{-1} mod 2^32
@@ -38,6 +60,140 @@ static inline ModParams mod_params_from_words(const uint32_t* w) {
   p.ebits = w[3 * MARLIN_MAX_NL + 1];
   return p;
 }
+
+// BLS12-381 base field Fq: N = 0x1a0111ea...ffffaaab (381 bits), R = 2^384.
+struct FqTraits {
+  static constexpr int NL = 12;
+  static constexpr int BITS = 381;
+  static constexpr uint32_t NP0 = 0xfffcfffdu;
+  __host__ __device__ static constexpr uint32_t n(int j) {
+    switch (j) {
+      case 0: return 0xffffaaabu;  case 1: return 0xb9feffffu;  case 2: return 0xb153ffffu;
+      case 3: return 0x1eabfffeu;  case 4: return 0xf6b0f624u;  case 5: return 0x6730d2a0u;
+      case 6: return 0xf38512bfu;  case 7: return 0x64774b84u;  case 8: return 0x434bacd7u;
+      case 9: return 0x4b1ba7b6u;  case 10: return 0x397fe69au; default: return 0x1a0111eau;
+    }
+  }
+  __host__ __device__ static constexpr uint32_t one(int j) {
+    switch (j) {
+      case 0: return 0x0002fffdu;  case 1: return 0x76090000u;  case 2: return 0xc40c0002u;
+      case 3: return 0xebf4000bu;  case 4: return 0x53c758bau;  case 5: return 0x5f489857u;
+      case 6: return 0x70525745u;  case 7: return 0x77ce5853u;  case 8: return 0xa256ec6du;
+      case 9: return 0x5c071a97u;  case 10: return 0xfa80e493u; default: return 0x15f65ec3u;
+    }
+  }
+};
+
+// BLS12-381 scalar field Fr: N = 0x73eda753...00000001 (255 bits), R = 2^256.
+struct FrTraits {
+  static constexpr int NL = 8;
+  static constexpr int BITS = 255;
+  static constexpr uint32_t NP0 = 0xffffffffu;
+  __host__ __device__ static constexpr uint32_t n(int j) {
+    switch (j) {
+      case 0: return 0x00000001u;  case 1: return 0xffffffffu;  case 2: return 0xfffe5bfeu;
+      case 3: return 0x53bda402u;  case 4: return 0x09a1d805u;  case 5: return 0x3339d808u;
+      case 6: return 0x299d7d48u;  default: return 0x73eda753u;
+    }
+  }
+  __host__ __device__ static constexpr uint32_t one(int j) {
+    switch (j) {
+      case 0: return 0xfffffffeu;  case 1: return 0x00000001u;  case 2: return 0x00034802u;
+      case 3: return 0x5884b7fau;  case 4: return 0xecbc4ff5u;  case 5: return 0x998c4fefu;
+      case 6: return 0xacc5056fu;  default: return 0x1824b159u;
+    }
+  }
+};
+
+static_assert(FqTraits::n(FqTraits::NL - 1) < 0x80000000u, "Fq needs a spare top bit");
+static_assert(FrTraits::n(FrTraits::NL - 1) < 0x80000000u, "Fr needs a spare top bit");
+
+// Limb w of N - 2, the Fermat exponent.
+template <class F>
+__host__ __device__ constexpr uint32_t exponent_limb(int w) {
+  uint32_t borrow = 2;
+  for (int j = 0; j < w; j++) borrow = F::n(j) < borrow ? 1u : 0u;
+  return F::n(w) - borrow;
+}
+
+// Whether the words from the Python side describe the compiled field F.
+template <class F>
+static inline bool params_match(const ModParams& p) {
+  bool ok = p.np0 == F::NP0 && p.ebits == (uint32_t)F::BITS;
+  for (int j = 0; j < MARLIN_MAX_NL; j++) {
+    const bool in = j < F::NL;
+    ok = ok && p.n[j] == (in ? F::n(j) : 0u) && p.one[j] == (in ? F::one(j) : 0u) &&
+         p.e[j] == (in ? exponent_limb<F>(j) : 0u);
+  }
+  return ok;
+}
+
+// ---------------------------------------------------------------------------
+// PTX carry-chain primitives.  ".cc" sets the carry flag, "c" consumes it.
+
+namespace ptx {
+__device__ __forceinline__ uint32_t add_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t addc_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("addc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t addc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("addc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t sub_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("sub.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t subc_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t subc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("subc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+// (lo, hi) += a b as one 64-bit word pair: starts a carry chain.  The low
+// output is early-clobber: it is written before the second instruction
+// reads the inputs.
+__device__ __forceinline__ void mad_wide_cc(uint32_t& lo, uint32_t& hi, uint32_t a, uint32_t b) {
+  asm volatile("mad.lo.cc.u32 %0, %2, %3, %0; madc.hi.cc.u32 %1, %2, %3, %1;"
+               : "+&r"(lo), "+r"(hi) : "r"(a), "r"(b));
+}
+// (lo, hi) += a b + carry: continues the chain.
+__device__ __forceinline__ void madc_wide_cc(uint32_t& lo, uint32_t& hi, uint32_t a, uint32_t b) {
+  asm volatile("madc.lo.cc.u32 %0, %2, %3, %0; madc.hi.cc.u32 %1, %2, %3, %1;"
+               : "+&r"(lo), "+r"(hi) : "r"(a), "r"(b));
+}
+// (lo, hi) = a b + (c0, c1) + carry: continues the chain.
+__device__ __forceinline__ void madc_wide_cc_to(uint32_t& lo, uint32_t& hi, uint32_t a, uint32_t b,
+                                                uint32_t c0, uint32_t c1) {
+  asm volatile("madc.lo.cc.u32 %0, %2, %3, %4; madc.hi.cc.u32 %1, %2, %3, %5;"
+               : "=&r"(lo), "=r"(hi) : "r"(a), "r"(b), "r"(c0), "r"(c1));
+}
+// (lo, hi) = a b + (0, c1) + carry: ends the chain (no carry out).
+__device__ __forceinline__ void madc_wide_end(uint32_t& lo, uint32_t& hi, uint32_t a, uint32_t b,
+                                              uint32_t c1) {
+  asm volatile("madc.lo.cc.u32 %0, %2, %3, 0; madc.hi.u32 %1, %2, %3, %4;"
+               : "=&r"(lo), "=r"(hi) : "r"(a), "r"(b), "r"(c1));
+}
+// (lo, hi) = a b, no carry in or out.
+__device__ __forceinline__ void mul_wide(uint32_t& lo, uint32_t& hi, uint32_t a, uint32_t b) {
+  asm volatile("mul.lo.u32 %0, %2, %3; mul.hi.u32 %1, %2, %3;"
+               : "=&r"(lo), "=r"(hi) : "r"(a), "r"(b));
+}
+}  // namespace ptx
+
+// ---------------------------------------------------------------------------
 
 template <int NL>
 __device__ __forceinline__ void fe_load(uint32_t r[NL], const int32_t* src) {
@@ -66,105 +222,151 @@ __device__ __forceinline__ void fe_copy(uint32_t r[NL], const uint32_t a[NL]) {
   for (int j = 0; j < NL; j++) r[j] = a[j];
 }
 
-// r = t - N if t (NL words plus a top word `hi`) is >= N, else t.
-template <int NL>
-__device__ __forceinline__ void fe_reduce_once(uint32_t r[NL], const uint32_t t[NL],
-                                               uint32_t hi, const ModParams& p) {
+template <class F>
+__device__ __forceinline__ void fe_set_one(uint32_t r[F::NL]) {
+#pragma unroll
+  for (int j = 0; j < F::NL; j++) r[j] = F::one(j);
+}
+
+// r = t - N if t >= N, else t (t < 2^(32 NL)).
+template <class F>
+__device__ __forceinline__ void fe_reduce_once(uint32_t r[F::NL], const uint32_t t[F::NL]) {
+  constexpr int NL = F::NL;
   uint32_t d[NL];
-  uint32_t borrow = 0;
+  d[0] = ptx::sub_cc(t[0], F::n(0));
 #pragma unroll
-  for (int j = 0; j < NL; j++) {
-    uint64_t s = (uint64_t)t[j] - p.n[j] - borrow;
-    d[j] = (uint32_t)s;
-    borrow = (uint32_t)(s >> 63);
-  }
-  const bool keep = hi < borrow;  // t - N < 0 over the full width
+  for (int j = 1; j < NL; j++) d[j] = ptx::subc_cc(t[j], F::n(j));
+  const uint32_t borrow = ptx::subc(0u, 0u);  // all ones where t < N
 #pragma unroll
-  for (int j = 0; j < NL; j++) r[j] = keep ? t[j] : d[j];
+  for (int j = 0; j < NL; j++) r[j] = borrow ? t[j] : d[j];
 }
 
-// Montgomery product a * b * 2^(-32 NL) mod N by CIOS.  Needs a * b < N R
-// (true for canonical operands, and for a < R when b < N); the result is
-// canonical.
-template <int NL>
-__device__ __forceinline__ void fe_mul(uint32_t r[NL], const uint32_t a[NL],
-                                       const uint32_t b[NL], const ModParams& p) {
-  uint32_t t[NL + 2];
+// Limb sources of the even/odd chains: limbs off, off + 2, off + 4, ... of a
+// register array, or of the modulus (immediates).
+struct Limbs {
+  const uint32_t* p;
+  int off;
+  __device__ __forceinline__ uint32_t operator()(int j) const { return p[off + j]; }
+};
+template <class F>
+struct ModLimbs {
+  int off;
+  __device__ __forceinline__ uint32_t operator()(int j) const { return F::n(off + j); }
+};
+
+// acc = Σ_{j even} x(j) b 2^(32 j)
+template <int NL, class X>
+__device__ __forceinline__ void mul_n(uint32_t acc[NL], const X& x, uint32_t b) {
 #pragma unroll
-  for (int j = 0; j < NL + 2; j++) t[j] = 0;
-#pragma unroll
-  for (int i = 0; i < NL; i++) {
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < NL; j++) {
-      uint64_t s = (uint64_t)a[j] * b[i] + t[j] + (c >> 32);
-      t[j] = (uint32_t)s;
-      c = s;
-    }
-    uint64_t s = (uint64_t)t[NL] + (c >> 32);
-    t[NL] = (uint32_t)s;
-    t[NL + 1] = (uint32_t)(s >> 32);
-    const uint32_t m = t[0] * p.np0;
-    c = (uint64_t)m * p.n[0] + t[0];
-#pragma unroll
-    for (int j = 1; j < NL; j++) {
-      s = (uint64_t)m * p.n[j] + t[j] + (c >> 32);
-      t[j - 1] = (uint32_t)s;
-      c = s;
-    }
-    s = (uint64_t)t[NL] + (c >> 32);
-    t[NL - 1] = (uint32_t)s;
-    t[NL] = t[NL + 1] + (uint32_t)(s >> 32);
-  }
-  // t[0..NL] < 2N
-  fe_reduce_once<NL>(r, t, t[NL], p);
+  for (int j = 0; j < NL; j += 2) ptx::mul_wide(acc[j], acc[j + 1], x(j), b);
 }
 
-template <int NL>
-__device__ __forceinline__ void fe_add(uint32_t r[NL], const uint32_t a[NL],
-                                       const uint32_t b[NL], const ModParams& p) {
+// acc += Σ_{j even} x(j) b 2^(32 j), one carry chain; leaves its carry out
+template <int NL, class X>
+__device__ __forceinline__ void cmad_n(uint32_t acc[NL], const X& x, uint32_t b) {
+  ptx::mad_wide_cc(acc[0], acc[1], x(0), b);
+#pragma unroll
+  for (int j = 2; j < NL; j += 2) ptx::madc_wide_cc(acc[j], acc[j + 1], x(j), b);
+}
+
+// acc = (acc + top 2^(32 NL)) / 2^64 + Σ_{j even} x(j) b 2^(32 j) + carry in
+template <int NL, class X>
+__device__ __forceinline__ void madc_n_rshift(uint32_t acc[NL], const X& x, uint32_t b,
+                                              uint32_t top) {
+#pragma unroll
+  for (int j = 0; j < NL - 2; j += 2)
+    ptx::madc_wide_cc_to(acc[j], acc[j + 1], x(j), b, acc[j + 2], acc[j + 3]);
+  ptx::madc_wide_end(acc[NL - 2], acc[NL - 1], x(NL - 2), b, top);
+}
+
+// One row of the product.  The running sum is even + odd 2^32 + top
+// 2^(32 (NL + 1)).  After the first row it enters as even + odd / 2^32 (and
+// top 2^(32 NL)) with odd_0 = 0: the previous row's sum divided by 2^32,
+// the accumulators' roles swapped by the caller.  Folding odd_1 into even_0,
+// and odd / 2^64 and top into odd, restores the form; then the row adds
+// a b_i and m N, which zeroes even_0.  -> the new top word.
+template <class F>
+__device__ __forceinline__ uint32_t mad_n_redc(uint32_t even[F::NL], uint32_t odd[F::NL],
+                                               const uint32_t a[F::NL], uint32_t bi,
+                                               uint32_t top, bool first) {
+  constexpr int NL = F::NL;
+  if (first) {
+    mul_n<NL>(odd, Limbs{a, 1}, bi);
+    mul_n<NL>(even, Limbs{a, 0}, bi);
+  } else {
+    even[0] = ptx::add_cc(even[0], odd[1]);
+    madc_n_rshift<NL>(odd, Limbs{a, 1}, bi, top);
+    cmad_n<NL>(even, Limbs{a, 0}, bi);
+    odd[NL - 1] = ptx::addc(odd[NL - 1], 0u);
+  }
+  const uint32_t m = even[0] * F::NP0;
+  cmad_n<NL>(odd, ModLimbs<F>{1}, m);
+  top = ptx::addc(0u, 0u);
+  cmad_n<NL>(even, ModLimbs<F>{0}, m);
+  odd[NL - 1] = ptx::addc_cc(odd[NL - 1], 0u);
+  return ptx::addc(top, 0u);
+}
+
+// Montgomery product a * b * 2^(-32 NL) mod N (see the top of the file).
+// Needs a * b < N R (canonical operands, or one canonical and the other
+// below R); the result is canonical.  r may alias a or b: every limb of
+// both is read before r is written.
+template <class F>
+__device__ __forceinline__ void fe_mul(uint32_t r[F::NL], const uint32_t a[F::NL],
+                                       const uint32_t b[F::NL]) {
+  constexpr int NL = F::NL;
+  uint32_t even[NL], odd[NL];
+  uint32_t top = 0;
+#pragma unroll
+  for (int i = 0; i < NL; i += 2) {
+    top = mad_n_redc<F>(even, odd, a, b[i], top, i == 0);
+    top = mad_n_redc<F>(odd, even, a, b[i + 1], top, false);
+  }
+  // T = odd + even 2^32 (top is 0) with odd_0 = 0: T / 2^32 = even + odd / 2^32 < 2N
+  even[0] = ptx::add_cc(even[0], odd[1]);
+#pragma unroll
+  for (int k = 1; k < NL - 1; k++) even[k] = ptx::addc_cc(even[k], odd[k + 1]);
+  even[NL - 1] = ptx::addc(even[NL - 1], 0u);
+  fe_reduce_once<F>(r, even);
+}
+
+template <class F>
+__device__ __forceinline__ void fe_add(uint32_t r[F::NL], const uint32_t a[F::NL],
+                                       const uint32_t b[F::NL]) {
+  constexpr int NL = F::NL;
   uint32_t t[NL];
-  uint64_t c = 0;
+  t[0] = ptx::add_cc(a[0], b[0]);
 #pragma unroll
-  for (int j = 0; j < NL; j++) {
-    c = (uint64_t)a[j] + b[j] + (c >> 32);
-    t[j] = (uint32_t)c;
-  }
-  fe_reduce_once<NL>(r, t, (uint32_t)(c >> 32), p);
+  for (int j = 1; j < NL - 1; j++) t[j] = ptx::addc_cc(a[j], b[j]);
+  t[NL - 1] = ptx::addc(a[NL - 1], b[NL - 1]);  // a + b < 2N < 2^(32 NL)
+  fe_reduce_once<F>(r, t);
 }
 
-template <int NL>
-__device__ __forceinline__ void fe_sub(uint32_t r[NL], const uint32_t a[NL],
-                                       const uint32_t b[NL], const ModParams& p) {
+template <class F>
+__device__ __forceinline__ void fe_sub(uint32_t r[F::NL], const uint32_t a[F::NL],
+                                       const uint32_t b[F::NL]) {
+  constexpr int NL = F::NL;
   uint32_t d[NL];
-  uint32_t borrow = 0;
+  d[0] = ptx::sub_cc(a[0], b[0]);
 #pragma unroll
-  for (int j = 0; j < NL; j++) {
-    uint64_t s = (uint64_t)a[j] - b[j] - borrow;
-    d[j] = (uint32_t)s;
-    borrow = (uint32_t)(s >> 63);
-  }
-  // a < b: add N back (mod 2^(32 NL))
-  const uint32_t mask = 0u - borrow;
-  uint64_t c = 0;
+  for (int j = 1; j < NL; j++) d[j] = ptx::subc_cc(a[j], b[j]);
+  const uint32_t mask = ptx::subc(0u, 0u);  // all ones where a < b: add N back
+  r[0] = ptx::add_cc(d[0], F::n(0) & mask);
 #pragma unroll
-  for (int j = 0; j < NL; j++) {
-    c = (uint64_t)d[j] + (p.n[j] & mask) + (c >> 32);
-    r[j] = (uint32_t)c;
-  }
+  for (int j = 1; j < NL - 1; j++) r[j] = ptx::addc_cc(d[j], F::n(j) & mask);
+  r[NL - 1] = ptx::addc(d[NL - 1], F::n(NL - 1) & mask);
 }
 
 // x^(N-2) by left-to-right square-and-multiply; 0 maps to 0.  The exponent
 // is the same for every thread, so the branch never diverges.
-template <int NL>
-__device__ __forceinline__ void fe_inv(uint32_t r[NL], const uint32_t x[NL],
-                                       const ModParams& p) {
-  uint32_t acc[NL];
-#pragma unroll
-  for (int j = 0; j < NL; j++) acc[j] = p.one[j];
-  for (int i = (int)p.ebits - 1; i >= 0; i--) {
-    fe_mul<NL>(acc, acc, acc, p);
-    if ((p.e[i >> 5] >> (i & 31)) & 1u) fe_mul<NL>(acc, acc, x, p);
+template <class F>
+__device__ __forceinline__ void fe_inv(uint32_t r[F::NL], const uint32_t x[F::NL]) {
+  uint32_t acc[F::NL];
+  fe_set_one<F>(acc);
+#pragma unroll 1
+  for (int i = F::BITS - 1; i >= 0; i--) {
+    fe_mul<F>(acc, acc, acc);
+    if ((exponent_limb<F>(i >> 5) >> (i & 31)) & 1u) fe_mul<F>(acc, acc, x);
   }
-  fe_copy<NL>(r, acc);
+  fe_copy<F::NL>(r, acc);
 }

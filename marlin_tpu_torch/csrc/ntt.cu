@@ -22,11 +22,11 @@
 // [2^s - 1, 2^(s+1) - 1), so one compiled kernel serves every size, forward
 // and inverse.
 //
-// What bounds it on the H100: a butterfly is one Montgomery product (136
-// 32-bit multiplies) and an add and a sub on 128 bytes of element traffic
-// per stage, so each cross-block stage is bound by memory bandwidth; (a)
-// takes log2(B) = 10 stages per global round trip, which leaves
-// log2(n) - 10 global passes (6 at the main path's 2^16).
+// What bounds it on the H100: a butterfly is one Montgomery product (160
+// integer multiply instructions) and an add and a sub on 128 bytes of
+// element traffic per stage, so each cross-block stage is bound by memory
+// bandwidth; (a) takes log2(B) = 10 stages per global round trip, which
+// leaves log2(n) - 10 global passes (6 at the main path's 2^16).
 //
 // C interface (ctypes): every entry returns the cudaError_t of its launch.
 
@@ -37,21 +37,22 @@
 
 namespace {
 
-constexpr int NL = 8;  // Fr
+using F = FrTraits;
+constexpr int NL = F::NL;
 constexpr int kMaxLogB = 10;
 constexpr int kThreads = 256;
 
 __device__ __forceinline__ void butterfly(uint32_t xe[NL], uint32_t xo[NL],
-                                          const int32_t* tw_row, const ModParams& p) {
+                                          const int32_t* tw_row) {
   uint32_t w[NL], t[NL];
   fe_load<NL>(w, tw_row);
-  fe_mul<NL>(t, w, xo, p);
-  fe_sub<NL>(xo, xe, t, p);
-  fe_add<NL>(xe, xe, t, p);
+  fe_mul<F>(t, w, xo);
+  fe_sub<F>(xo, xe, t);
+  fe_add<F>(xe, xe, t);
 }
 
 __global__ void __launch_bounds__(kThreads) block_stages_kernel(int32_t* __restrict__ x, int log_b,
-                                    const int32_t* __restrict__ tw, ModParams p) {
+                                    const int32_t* __restrict__ tw) {
   extern __shared__ uint32_t sm[];
   const int B = 1 << log_b;
   const int half = B >> 1;
@@ -75,7 +76,7 @@ __global__ void __launch_bounds__(kThreads) block_stages_kernel(int32_t* __restr
         xe[q] = sm[e * NL + q];
         xo[q] = sm[o * NL + q];
       }
-      butterfly(xe, xo, tw + (long long)(m - 1 + j) * 2 * NL, p);
+      butterfly(xe, xo, tw + (long long)(m - 1 + j) * 2 * NL);
 #pragma unroll
       for (int q = 0; q < NL; q++) {
         sm[e * NL + q] = xe[q];
@@ -93,7 +94,7 @@ __global__ void __launch_bounds__(kThreads) block_stages_kernel(int32_t* __restr
 }
 
 __global__ void __launch_bounds__(kThreads) cross_stage_kernel(int32_t* __restrict__ x, long long half_total, int s,
-                                   const int32_t* __restrict__ tw, ModParams p) {
+                                   const int32_t* __restrict__ tw) {
   const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= half_total) return;
   const long long m = 1LL << s;
@@ -103,7 +104,7 @@ __global__ void __launch_bounds__(kThreads) cross_stage_kernel(int32_t* __restri
   uint32_t xe[NL], xo[NL];
   fe_load<NL>(xe, x + e * 2 * NL);
   fe_load<NL>(xo, x + o * 2 * NL);
-  butterfly(xe, xo, tw + (m - 1 + j) * 2 * NL, p);
+  butterfly(xe, xo, tw + (m - 1 + j) * 2 * NL);
   fe_store<NL>(x + e * 2 * NL, xe);
   fe_store<NL>(x + o * 2 * NL, xo);
 }
@@ -115,13 +116,14 @@ extern "C" int marlin_ntt_block_stages(void* x, long long total, int log_b, cons
                                        const void* params, void* stream) {
   if (log_b < 1 || log_b > kMaxLogB || total <= 0 || (total & ((1LL << log_b) - 1)))
     return (int)cudaErrorInvalidValue;
-  const ModParams p = mod_params_from_words(static_cast<const uint32_t*>(params));
+  if (!params_match<F>(mod_params_from_words(static_cast<const uint32_t*>(params))))
+    return (int)cudaErrorInvalidValue;
   const int B = 1 << log_b;
   const unsigned blocks = (unsigned)(total >> log_b);
   const int threads = B / 2 < kThreads ? B / 2 : kThreads;
   const size_t smem = (size_t)B * NL * sizeof(uint32_t);
   block_stages_kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int32_t*>(x), log_b, static_cast<const int32_t*>(tw), p);
+      static_cast<int32_t*>(x), log_b, static_cast<const int32_t*>(tw));
   return (int)cudaGetLastError();
 }
 
@@ -129,10 +131,11 @@ extern "C" int marlin_ntt_block_stages(void* x, long long total, int log_b, cons
 extern "C" int marlin_ntt_cross_stage(void* x, long long total, int s, const void* tw,
                                       const void* params, void* stream) {
   if (s < 0 || total <= 0 || (total & ((2LL << s) - 1))) return (int)cudaErrorInvalidValue;
-  const ModParams p = mod_params_from_words(static_cast<const uint32_t*>(params));
+  if (!params_match<F>(mod_params_from_words(static_cast<const uint32_t*>(params))))
+    return (int)cudaErrorInvalidValue;
   const long long half_total = total / 2;
   const unsigned blocks = (unsigned)((half_total + kThreads - 1) / kThreads);
   cross_stage_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int32_t*>(x), half_total, s, static_cast<const int32_t*>(tw), p);
+      static_cast<int32_t*>(x), half_total, s, static_cast<const int32_t*>(tw));
   return (int)cudaGetLastError();
 }

@@ -28,6 +28,11 @@ _HEADERS = ("mont.cuh",)
 _BUILD_DIR = os.path.join(_PKG, "build")
 _SO = os.path.join(_BUILD_DIR, "libmarlin_cuda.so")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# per-source flags.  curve.cu: ptxas's default (-O3) schedule interleaves the
+# group law's independent Fq products and then spills under the register cap
+# of four blocks an SM; its -O1 schedule keeps them in order (72-162
+# registers, no spill) at the same speed on the H100 (PERF.md, PR 4).
+_SOURCE_FLAGS = {"curve.cu": ["-Xptxas", "-O1"]}
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: dict[str, int] = {
@@ -37,6 +42,7 @@ LAUNCHES: dict[str, int] = {
     "ntt_cross_stage": 0,
     "g1_add": 0,
     "g1_double": 0,
+    "g1_scalar_mul": 0,
     "bucket_fold": 0,
     "combine_windows": 0,
 }
@@ -57,14 +63,18 @@ _SIGNATURES = {
     "marlin_ntt_block_stages": [_P, _LL, _I, _P, _P, _P],
     # (x, total, stage, twiddles, params, stream)
     "marlin_ntt_cross_stage": [_P, _LL, _I, _P, _P, _P],
-    # (x1, y1, z1, x2, y2, z2, ox, oy, oz, n, params, stream)
-    "marlin_g1_add": [_P] * 9 + [_LL, _P, _P],
-    # (x, y, z, ox, oy, oz, n, params, stream)
-    "marlin_g1_double": [_P] * 6 + [_LL, _P, _P],
-    # (exact, table, layout, lanes, cap, ox, oy, oz, flags, params, stream)
-    "marlin_bucket_fold": [_I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
-    # (x, y, z, W, c, ox, oy, oz, params, stream)
-    "marlin_combine_windows": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+    # (x1, y1, z1, x2, y2, z2, ox, oy, oz, n, stream)
+    "marlin_g1_add": [_P] * 9 + [_LL, _P],
+    # (x, y, z, ox, oy, oz, n, stream)
+    "marlin_g1_double": [_P] * 6 + [_LL, _P],
+    # (x, y, z, scalars, num_bits, ox, oy, oz, n, stream)
+    "marlin_g1_scalar_mul": [_P, _P, _P, _P, _I, _P, _P, _P, _LL, _P],
+    # (exact, table, layout, lanes, cap, log_sub, ox, oy, oz, flags, stream)
+    "marlin_bucket_fold": [_I, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    # (x, y, z, W, c, ox, oy, oz, stream)
+    "marlin_combine_windows": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
+    # (which, *regs, *local_bytes, *blocks_per_sm)
+    "marlin_curve_kernel_info": [_I, _P, _P, _P],
 }
 
 
@@ -105,7 +115,8 @@ def build() -> float:
                 obj = os.path.join(tmp, src.replace(".cu", ".o"))
                 objs.append(obj)
                 cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-                       "-Xptxas", "-v", "-c", os.path.join(_CSRC, src), "-o", obj]
+                       "-Xptxas", "-v", *_SOURCE_FLAGS.get(src, []),
+                       "-c", os.path.join(_CSRC, src), "-o", obj]
                 procs.append((src, subprocess.Popen(
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
             for src, p in procs:

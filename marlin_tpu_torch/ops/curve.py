@@ -2,7 +2,7 @@
 
 Port of `marlin_tpu/ops/pallas/curve.py`.  A point batch is a tuple
 (X, Y, Z) of `[.., 24]` int32 Fq Montgomery limb tensors, Jacobian,
-identity <=> Z == 0 (ops/curve_device.py).  Three functions, each as a
+identity <=> Z == 0 (ops/curve_device.py).  Five functions, each as a
 kernel wrapper (csrc/curve.cu) and a plain PyTorch version, routed by the
 tensor's device alone (a CUDA tensor launches the kernel or raises, a CPU
 tensor takes the plain version):
@@ -10,10 +10,13 @@ tensor takes the plain version):
 * `add`: the complete Jacobian add, add-2007-bl with its edge cases
   (`_jac_add_planes`, curve.py:65-107);
 * `double`: dbl-2009-l, with Z3 = 0 where Y or Z is 0 (`_double_kernel`);
-* `bucket_fold`: the sums of the fixed-table MSM's buckets (`_fold_kernel`):
-  each bucket lane's slots folded with the mixed add (`_jac_madd_planes`,
-  or `_jac_madd_planes_fast`, which reports degeneracy instead of doubling),
-  in FOLD_SUBROWS interleaved partial sums that a roll-halving tree of
+* `scalar_mul`: s_i·P_i by the MSB-first double-and-add of
+  `marlin_tpu/ops/curve_device.py::scalar_mul_batch` (:282), the doubling
+  and the complete add above, in one launch;
+* `bucket_fold`: the sums of the MSMs' buckets (`_fold_kernel`): each
+  bucket lane's slots folded with the mixed add (`_jac_madd_planes`, or
+  `_jac_madd_planes_fast`, which reports degeneracy instead of doubling),
+  in `fold_subrows` interleaved partial sums that a roll-halving tree of
   complete adds joins;
 * `combine_windows`: Σ_w 2^(c·w)·T_w over a classic Pippenger's window sums
   (`_combine_kernel`): window w doubled c·w times, then a halving tree of
@@ -35,9 +38,13 @@ import torch
 from . import bigint as bi
 from . import cuda, fq
 
-# partial sums per bucket lane (csrc/curve.cu kSubRows: one warp per lane).
-# The Jacobian result of a fold depends on it; its affine result does not.
+# partial sums per bucket lane on the table path's folds (one warp a lane):
+# the most `fold_subrows` gives (csrc/curve.cu kMaxLogSub).  The Jacobian
+# result of a fold depends on the count; its affine result does not.
 FOLD_SUBROWS = 32
+# threads a fold should keep busy (about two blocks of 128 on each of the
+# H100's 132 SMs): lanes take more sub-rows until they reach it
+FOLD_THREADS = 1 << 15
 # most window sums one combine takes (csrc/curve.cu kCombineThreads, and the
 # TPU kernel's lane tile)
 COMBINE_MAX = 128
@@ -162,6 +169,33 @@ def madd_plain(p, x2, y2, exact: bool):
     return _select_edges(X3, Y3, Z3, p, (x2, y2, one), no, p_inf, no), deg
 
 
+def _scalar_operands(points, scalar_limbs, num_bits: int):
+    """Points and [.., 16] canonical scalar limbs broadcast to one batch
+    shape -> (shape, three [n, 24] coordinates, [n, 16] limbs)."""
+    if not 0 <= num_bits <= 16 * scalar_limbs.shape[-1]:
+        raise ValueError(f"scalar_mul: {num_bits} bits for {scalar_limbs.shape[-1]} 16-bit limbs")
+    shape = torch.broadcast_shapes(*(c.shape[:-1] for c in points), scalar_limbs.shape[:-1])
+    coords = [c.expand(*shape, _L).reshape(-1, _L) for c in points]
+    scal = scalar_limbs.expand(*shape, scalar_limbs.shape[-1]).reshape(-1, scalar_limbs.shape[-1])
+    return shape, coords, scal
+
+
+def scalar_mul_plain(points, scalar_limbs: torch.Tensor, num_bits: int = 255):
+    """Plain twin of kernel 4's scalar multiple: see `scalar_mul`.  The add
+    runs only on the points whose bit is set, which keeps the limbs of the
+    add-then-select loop it replaces."""
+    shape, P, scal = _scalar_operands(points, scalar_limbs, num_bits)
+    acc = list(_identity((P[0].shape[0],), P[0].device))
+    for k in range(num_bits - 1, -1, -1):
+        acc = list(double_plain(tuple(acc)))
+        idx = (((scal[:, k // 16] >> (k % 16)) & 1) == 1).nonzero(as_tuple=True)[0]
+        if idx.numel():
+            out = add_plain(tuple(a[idx] for a in acc), tuple(p[idx] for p in P))
+            for a, o in zip(acc, out):
+                a[idx] = o
+    return tuple(a.reshape(*shape, _L) for a in acc)
+
+
 def pack_points_xy(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """[.., 24] X and Y limbs -> [.., 24] packed rows: column p < 12 holds X
     limbs (2p, 2p+1) as lo | hi << 16, columns 12.. the same for Y — each
@@ -185,10 +219,24 @@ def _identity(shape, device):
     return zero, _CTX.const("one", device).expand(*shape, _L).clone(), zero.clone()
 
 
-def bucket_fold_plain(table: torch.Tensor, layout: torch.Tensor, exact: bool = False):
+def fold_subrows(lanes: int, cap: int) -> int:
+    """Sub-rows (partial sums) per bucket lane of a [lanes, cap] fold: the
+    fewest that give the fold about FOLD_THREADS threads, at most
+    FOLD_SUBROWS and at most cap (powers of two).  Long table-path lanes
+    ([1539, 3552]) keep 32; the classic path's many short lanes
+    ([16384, 128]) take 2, and one where lanes alone fill the card: each
+    sub-row costs its share of the join tree, which on a short lane would
+    outweigh the slots."""
+    want = -(-FOLD_THREADS // max(lanes, 1))
+    most = min(FOLD_SUBROWS, 1 << (max(cap, 1).bit_length() - 1))
+    return min(1 << (want - 1).bit_length(), most)
+
+
+def bucket_fold_plain(table: torch.Tensor, layout: torch.Tensor, exact: bool = False,
+                      subrows: int | None = None):
     """Plain twin of kernel 5: see `bucket_fold`."""
     lanes, cap = layout.shape
-    R = FOLD_SUBROWS
+    R = fold_subrows(lanes, cap) if subrows is None else _check_subrows(subrows)
     steps = -(-cap // R)
     lay = torch.nn.functional.pad(layout, (0, steps * R - cap)).reshape(lanes, steps, R)
     acc = list(_identity((lanes, R), layout.device))
@@ -212,6 +260,12 @@ def bucket_fold_plain(table: torch.Tensor, layout: torch.Tensor, exact: bool = F
             a[:, :s] = o
         s //= 2
     return tuple(a[:, 0].contiguous() for a in acc), deg.any(-1).sum()
+
+
+def _check_subrows(subrows: int) -> int:
+    if subrows < 1 or subrows > FOLD_SUBROWS or subrows & (subrows - 1):
+        raise ValueError(f"bucket_fold: {subrows} sub-rows, expected a power of two <= {FOLD_SUBROWS}")
+    return subrows
 
 
 def _combine_operands(stacked):
@@ -264,8 +318,7 @@ def add_kernel(p, q):
     if n == 0:
         return tuple(out)
     err = cuda.lib().marlin_g1_add(
-        *(t.data_ptr() for t in ops), *(t.data_ptr() for t in out), n,
-        _CTX.kernel_params.ctypes.data_as(ctypes.c_void_p), cuda.stream_handle(out[0]),
+        *(t.data_ptr() for t in ops), *(t.data_ptr() for t in out), n, cuda.stream_handle(out[0])
     )
     cuda.LAUNCHES["g1_add"] += 1
     cuda.check(err, "g1_add")
@@ -280,15 +333,40 @@ def double_kernel(p):
     if n == 0:
         return tuple(out)
     err = cuda.lib().marlin_g1_double(
-        *(t.data_ptr() for t in ops), *(t.data_ptr() for t in out), n,
-        _CTX.kernel_params.ctypes.data_as(ctypes.c_void_p), cuda.stream_handle(out[0]),
+        *(t.data_ptr() for t in ops), *(t.data_ptr() for t in out), n, cuda.stream_handle(out[0])
     )
     cuda.LAUNCHES["g1_double"] += 1
     cuda.check(err, "g1_double")
     return tuple(out)
 
 
-def bucket_fold_kernel(table: torch.Tensor, layout: torch.Tensor, exact: bool = False):
+def scalar_mul_kernel(points, scalar_limbs: torch.Tensor, num_bits: int = 255):
+    """Kernel 4: the whole double-and-add ladder in one launch."""
+    shape, coords, scal = _scalar_operands(points, scalar_limbs, num_bits)
+    coords = [c.contiguous() for c in coords]
+    scal = scal.contiguous()
+    for i, t in enumerate(coords):
+        cuda.require_cuda_field_tensor(t, f"g1_scalar_mul coordinate {i}", _L)
+        if t.device != coords[0].device:
+            raise ValueError("g1_scalar_mul: coordinates on different devices")
+    if not scal.is_cuda or scal.device != coords[0].device or scal.dtype != torch.int32:
+        raise ValueError("g1_scalar_mul: scalars must be int32 limbs on the points' device")
+    if scal.shape[-1] != 16:
+        raise ValueError(f"g1_scalar_mul: expected 16 scalar limbs, got {scal.shape[-1]}")
+    n = coords[0].shape[0]
+    out = [torch.empty((n, _L), dtype=torch.int32, device=coords[0].device) for _ in range(3)]
+    if n:
+        err = cuda.lib().marlin_g1_scalar_mul(
+            *(t.data_ptr() for t in coords), scal.data_ptr(), num_bits,
+            *(t.data_ptr() for t in out), n, cuda.stream_handle(out[0]),
+        )
+        cuda.LAUNCHES["g1_scalar_mul"] += 1
+        cuda.check(err, "g1_scalar_mul")
+    return tuple(t.reshape(*shape, _L) for t in out)
+
+
+def bucket_fold_kernel(table: torch.Tensor, layout: torch.Tensor, exact: bool = False,
+                       subrows: int | None = None):
     """Kernel 5: see `bucket_fold`."""
     cuda.require_cuda_field_tensor(table, "bucket_fold table", _L)
     if table.dim() != 2:
@@ -298,6 +376,7 @@ def bucket_fold_kernel(table: torch.Tensor, layout: torch.Tensor, exact: bool = 
     if layout.dtype != torch.int32 or layout.dim() != 2 or not layout.is_contiguous():
         raise ValueError("bucket_fold: the layout is a contiguous [lanes, cap] int32 tensor")
     lanes, cap = layout.shape
+    R = fold_subrows(lanes, cap) if subrows is None else _check_subrows(subrows)
     if lanes * cap and int(layout.abs().max()) > table.shape[0]:
         raise ValueError("bucket_fold: a layout entry points past the table")
     out = [torch.empty((lanes, _L), dtype=torch.int32, device=table.device) for _ in range(3)]
@@ -305,9 +384,8 @@ def bucket_fold_kernel(table: torch.Tensor, layout: torch.Tensor, exact: bool = 
     if lanes == 0:
         return tuple(out), flags.sum()
     err = cuda.lib().marlin_bucket_fold(
-        int(exact), table.data_ptr(), layout.data_ptr(), lanes, cap,
-        *(t.data_ptr() for t in out), flags.data_ptr(),
-        _CTX.kernel_params.ctypes.data_as(ctypes.c_void_p), cuda.stream_handle(table),
+        int(exact), table.data_ptr(), layout.data_ptr(), lanes, cap, R.bit_length() - 1,
+        *(t.data_ptr() for t in out), flags.data_ptr(), cuda.stream_handle(table),
     )
     cuda.LAUNCHES["bucket_fold"] += 1
     cuda.check(err, "bucket_fold")
@@ -327,11 +405,28 @@ def combine_windows_kernel(stacked, c: int):
     out = [torch.empty((1, _L), dtype=torch.int32, device=coords[0].device) for _ in range(3)]
     err = cuda.lib().marlin_combine_windows(
         *(t.data_ptr() for t in coords), W, c, *(t.data_ptr() for t in out),
-        _CTX.kernel_params.ctypes.data_as(ctypes.c_void_p), cuda.stream_handle(out[0]),
+        cuda.stream_handle(out[0]),
     )
     cuda.LAUNCHES["combine_windows"] += 1
     cuda.check(err, "combine_windows")
     return tuple(out)
+
+
+KERNEL_INFO_NAMES = ("g1_add", "g1_double", "g1_scalar_mul", "bucket_fold", "bucket_fold_exact",
+                     "combine_windows")
+
+
+def kernel_info() -> dict:
+    """name -> registers, local memory bytes (stack frame and spills) and
+    resident blocks of 128 threads an SM of each curve kernel, from the
+    CUDA runtime (`cudaFuncGetAttributes`, the occupancy calculator)."""
+    out = {}
+    for which, name in enumerate(KERNEL_INFO_NAMES):
+        vals = [ctypes.c_int(0) for _ in range(3)]
+        err = cuda.lib().marlin_curve_kernel_info(which, *(ctypes.byref(v) for v in vals))
+        cuda.check(err, f"curve_kernel_info {name}")
+        out[name] = dict(zip(("registers", "local_bytes", "blocks_per_sm"), (v.value for v in vals)))
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -348,15 +443,28 @@ def double(p):
     return double_kernel(p) if p[0].is_cuda else double_plain(p)
 
 
+def scalar_mul(points, scalar_limbs: torch.Tensor, num_bits: int = 255):
+    """Elementwise s_i·P_i of a point batch (MSB-first double-and-add).
+
+    scalar_limbs: [.., 16] canonical (not Montgomery) 16-bit Fr limbs,
+    broadcast against the points.  From the identity (0, 1, 0), for bit
+    k = num_bits-1 .. 0: acc = double(acc), then acc = add(acc, P_i) where
+    bit k of s_i is set."""
+    if points[0].is_cuda:
+        return scalar_mul_kernel(points, scalar_limbs, num_bits)
+    return scalar_mul_plain(points, scalar_limbs, num_bits)
+
+
 def bucket_fold(table: torch.Tensor, layout: torch.Tensor, exact: bool = False):
     """Σ over each bucket lane's slots of signed table points.
 
     table: [rows, 24] `pack_points_xy` rows of affine points.  layout:
     [lanes, cap] int32, lane-major: entry (b, j) is slot j of bucket lane b —
     0 = empty, +k = table row k-1, -k = its negation (G1 has prime order, so
-    y != 0 for every real point).  Sub-row r of a lane sums the slots
-    j = r mod FOLD_SUBROWS with the mixed add, from the identity; the partial
-    sums then join in a roll-halving tree of complete adds.  With
+    y != 0 for every real point).  Sub-row r of a lane's S =
+    `fold_subrows(lanes, cap)` sums the slots j = r mod S with the mixed add,
+    from the identity; the partial sums then join in a roll-halving tree of
+    complete adds (row r takes row r + s for s = S/2, ..., 1).  With
     exact=False the mixed add has no doubling branch, and a lane where it
     met P == Q counts in the returned flag.
 

@@ -2,8 +2,8 @@
 
 Port of `marlin_tpu/ops/curve_device.py`.  A point batch is a tuple
 (X, Y, Z) of `[.., 24]` Fq Montgomery limb tensors, identity <=> Z == 0.
-`add` and `double` are kernel 4 on a CUDA tensor and its plain version on
-a CPU tensor (ops/curve.py); the field ops route the same way
+`add`, `double` and `scalar_mul_batch` are kernel 4 on a CUDA tensor and
+its plain version on a CPU tensor (ops/curve.py); the field ops route the same way
 (ops/routing.py).  Every edge case is resolved per lane, so one launch
 serves a whole batch.
 """
@@ -142,17 +142,12 @@ def normalize_batch(p: Point) -> Point:
 
 
 def scalar_mul_batch(points: Point, scalar_limbs: torch.Tensor, num_bits: int = 255) -> Point:
-    """Elementwise s_i * P_i (double-and-add, MSB first).
+    """Elementwise s_i * P_i (double-and-add, MSB first): one launch of
+    kernel 4's ladder on the card (ops/curve.py::scalar_mul).
 
-    scalar_limbs: [..., 16] canonical (not Montgomery) base-2^16 Fr limbs."""
-    acc = identity(points[0].shape[:-1], points[0].device)
-    for i in range(num_bits):
-        k = num_bits - 1 - i
-        acc = double(acc)
-        added = add(acc, points)
-        bit = ((scalar_limbs[..., k // 16] >> (k % 16)) & 1) == 1
-        acc = select_point(bit, added, acc)
-    return acc
+    scalar_limbs: [..., 16] canonical (not Montgomery) base-2^16 Fr limbs,
+    broadcast against the points."""
+    return curve.scalar_mul(points, scalar_limbs, num_bits)
 
 
 def to_affine_ints(pt: Point) -> list:

@@ -129,8 +129,8 @@ def msm_many(powers: cd.Point, jobs: list, exact: bool = False, table=None) -> l
 
 def fixed_base_powers(base_affine: tuple, scalar_ints: list, device) -> cd.Point:
     """[s_0·G, s_1·G, ...] as a Jacobian batch on `device` — one batched
-    double-and-add (msm.py:1142)."""
-    base = cd.from_affine_ints([base_affine] * len(scalar_ints), device)
+    double-and-add (msm.py:1142) of the one base against every scalar."""
+    base = cd.from_affine_ints([base_affine], device)
     limbs = ints_to_limbs([s % P.R_MODULUS for s in scalar_ints], fr.L).astype(np.int32)
     return cd.scalar_mul_batch(base, torch.as_tensor(limbs, device=base[0].device), FR_BITS)
 
@@ -445,16 +445,11 @@ def _masked_digit_sums(points: cd.Point, d: torch.Tensor, cols: list) -> cd.Poin
 
 
 def _scale_by_values(parts: cd.Point, values: list) -> cd.Point:
-    """[C] points times their small values, by one batched double-and-add
-    from the top bit down (msm.py:187-192 per value)."""
-    dev = parts[0].device
-    v = torch.as_tensor(values, device=dev)
-    acc = cd.identity((len(values),), dev)
-    for k in range(max(values).bit_length() - 1, -1, -1):
-        acc = cd.double(acc)
-        bit = ((v >> k) & 1) == 1
-        acc = cd.select_point(bit, cd.add(acc, parts), acc)
-    return acc
+    """[C] points times their small values (< 2^16), by one batched
+    double-and-add from the top bit down (msm.py:187-192 per value)."""
+    limbs = torch.zeros((len(values), fr.L), dtype=torch.int32, device=parts[0].device)
+    limbs[:, 0] = torch.as_tensor(values, device=limbs.device)
+    return cd.scalar_mul_batch(parts, limbs, max(values).bit_length())
 
 
 def _skewed_windows(points: cd.Point, d: torch.Tensor, counts: np.ndarray, rows: list) -> list:

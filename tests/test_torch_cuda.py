@@ -45,6 +45,18 @@ def test_binop_kernel_matches_plain(dev, field, kind):
 
 
 @pytest.mark.parametrize("field", ["fr", "fq"])
+def test_mul_kernel_takes_an_operand_below_r(dev, field):
+    """to_mont of raw limbs: one operand any value below R, not below N."""
+    ctx = {"fr": fr.CTX, "fq": fq.CTX}[field]
+    rng = np.random.default_rng(21)
+    raw = torch.as_tensor(rng.integers(0, 1 << 16, size=(3000, ctx.L)).astype(np.int32), device=dev)
+    raw[0] = 0xFFFF  # R - 1
+    b = _elements(ctx, 3000, 22, dev)
+    assert torch.equal(bi.binop_kernel("mul", ctx, raw, b), bi.mont_mul(ctx, raw, b))
+    assert torch.equal(bi.binop_kernel("mul", ctx, b, raw), bi.mont_mul(ctx, b, raw))
+
+
+@pytest.mark.parametrize("field", ["fr", "fq"])
 def test_inv_kernel_matches_plain(dev, field):
     ctx = {"fr": fr.CTX, "fq": fq.CTX}[field]
     x = _elements(ctx, 300, 3, dev)
@@ -120,6 +132,83 @@ def test_bucket_fold_kernel_matches_plain(dev, exact):
     assert int(k_flag) == int(p_flag) == (0 if exact else 1)
 
 
+@pytest.mark.parametrize("subrows", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("exact", [False, True])
+def test_bucket_fold_kernel_matches_plain_at_each_subrow_count(dev, subrows, exact):
+    """Lane 9 holds one point twice (slots 0 and 32, nothing between), so
+    the pair meets in one sub-row at every sub-row count."""
+    from marlin_tpu_torch.ops import curve
+    from marlin_tpu_torch.ops import curve_device as cd
+
+    rows = cd.from_affine_ints(_curve_points(300, 15, dev), dev)
+    table = curve.pack_points_xy(rows[0], rows[1])
+    rng = np.random.default_rng(16)
+    lanes, cap = 45, 77
+    lay = np.zeros((lanes, cap), np.int32)
+    for b in range(lanes):
+        fill = int(rng.integers(0, cap))
+        lay[b, :fill] = (rng.permutation(300)[:fill] + 1) * rng.choice([-1, 1], size=fill)
+    lay[9] = 0
+    lay[9, 0] = lay[9, 32] = -23
+    layout = torch.as_tensor(lay, device=dev)
+    k_pts, k_flag = curve.bucket_fold_kernel(table, layout, exact, subrows)
+    p_pts, p_flag = curve.bucket_fold_plain(table, layout, exact, subrows)
+    for k, q in zip(k_pts, p_pts):
+        assert torch.equal(k, q)
+    assert int(k_flag) == int(p_flag) == (0 if exact else 1)
+
+
+def test_bucket_fold_kernel_takes_the_shape_s_subrows(dev):
+    """Many short lanes (the classic path's shape, scaled down): the
+    default sub-row count is the plain version's."""
+    from marlin_tpu_torch.ops import curve
+    from marlin_tpu_torch.ops import curve_device as cd
+
+    rows = cd.from_affine_ints(_curve_points(200, 17, dev), dev)
+    table = curve.pack_points_xy(rows[0], rows[1])
+    rng = np.random.default_rng(18)
+    lanes, cap = 20000, 8
+    lay = (rng.integers(1, 201, size=(lanes, cap)) * rng.choice([-1, 0, 1], size=(lanes, cap)))
+    layout = torch.as_tensor(lay.astype(np.int32), device=dev)
+    assert curve.fold_subrows(lanes, cap) == 2
+    k_pts, k_flag = curve.bucket_fold_kernel(table, layout)
+    p_pts, p_flag = curve.bucket_fold_plain(table, layout)
+    for k, q in zip(k_pts, p_pts):
+        assert torch.equal(k, q)
+    assert int(k_flag) == int(p_flag)
+
+
+def test_scalar_mul_kernel_matches_plain(dev):
+    """Identity points, scalars 0, 1 and r - 1, a point off affine form, and
+    one base broadcast against many scalars; one launch each."""
+    from marlin_tpu_torch.fields import bls12_381 as P
+    from marlin_tpu_torch.fields import host_curve as hc
+    from marlin_tpu_torch.ops import curve
+    from marlin_tpu_torch.ops import curve_device as cd
+    from marlin_tpu_torch.ops.limbs import ints_to_limbs
+
+    rng = np.random.default_rng(19)
+    r = P.R_MODULUS
+    pts = _curve_points(40, 20, dev)
+    pts[3] = pts[11] = None
+    ks = [int.from_bytes(rng.bytes(40), "little") % r for _ in pts]
+    ks[0], ks[1], ks[2], ks[3] = 0, 1, r - 1, r - 1
+    A = cd.from_affine_ints(pts, dev)
+    A = curve.add_kernel(A, A)  # Z != 1: the points 2 P_i
+    scal = torch.as_tensor(ints_to_limbs(ks, 16).astype(np.int32), device=dev)
+    cuda.reset_launches()
+    got = curve.scalar_mul_kernel(A, scal)
+    assert cuda.LAUNCHES["g1_scalar_mul"] == 1
+    for k, q in zip(got, curve.scalar_mul_plain(A, scal)):
+        assert torch.equal(k, q)
+    want = [hc.g1_mul(hc.g1_add(p, p), k) if p else None for p, k in zip(pts, ks)]
+    assert cd.to_affine_ints(got) == want
+    base = cd.from_affine_ints([pts[5]], dev)
+    wide = curve.scalar_mul_kernel(base, scal[:, None, :].expand(40, 3, 16), 255)
+    for k, q in zip(wide, curve.scalar_mul_plain(base, scal[:, None, :].expand(40, 3, 16), 255)):
+        assert k.shape == (40, 3, 24) and torch.equal(k, q)
+
+
 def test_table_msm_on_the_card_equals_the_host_msm(dev):
     from marlin_tpu_torch.fields import host_curve as hc
     from marlin_tpu_torch.ops import curve_device as cd
@@ -151,6 +240,9 @@ def test_curve_kernels_count_launches(dev):
     curve.bucket_fold(table, torch.tensor([[1, -2, 0, 3]], dtype=torch.int32, device=dev))
     assert cuda.LAUNCHES["g1_add"] == 1 and cuda.LAUNCHES["g1_double"] == 1
     assert cuda.LAUNCHES["bucket_fold"] == 1
+    cd.scalar_mul_batch(p, torch.ones((8, 16), dtype=torch.int32, device=dev))
+    assert cuda.LAUNCHES["g1_scalar_mul"] == 1
+    assert cuda.LAUNCHES["g1_add"] == 1 and cuda.LAUNCHES["g1_double"] == 1
 
 
 @pytest.mark.parametrize("c, W", [(10, 26), (2, 128)])

@@ -11,11 +11,15 @@ Builds the bench circuit (`DummyCircuit`, 2^log2 constraints, SRS sized by
 * one prove under `torch.profiler` (CPU and CUDA activity): device time by
   kernel name, their sum, and the device's busy share of the wall time;
 * each kernel alone at the main path's largest shape (2^16 Fr elements;
-  2^16 points for the group law; the prove's largest fold, round 3's three
-  jobs of 2^16 - 1 scalars, for the bucket fold; 26 window sums at c = 10,
-  the classic Pippenger's largest in that prove, for the window combine),
-  20 launches under the profiler: its device time per launch, free of the
-  wrapper's host overhead that CUDA-event timing of a Python call includes.
+  2^16 points for the group law, and the bucket scans' 1,539; the prove's
+  largest fold, round 3's three jobs of 2^16 - 1 scalars, for the bucket
+  fold, and the classic route's [16384, 128] windows; 26 window sums at
+  c = 10, the classic Pippenger's largest in that prove, for the window
+  combine; the ladder of `scalar_mul_batch` at 2 and 512 points), 20
+  launches under the profiler (5 for the ladder): its device time per
+  launch, free of the wrapper's host overhead that CUDA-event timing of a
+  Python call includes.  A ladder that runs as many launches (the host
+  loop of earlier versions) counts the device time of all of them.
 
 With `MARLIN_TPU_MSM_TABLE=0` in the environment the proves take the
 classic Pippenger instead of the fixed-base table.
@@ -68,16 +72,22 @@ def _profiled_prove(torch, Marlin, pk, circ, rng) -> dict:
     }
 
 
-# kernel label -> substring of its symbol in the profiler's device events
+# kernel label -> substrings of its symbol in the profiler's device events
+# (either template form the kernels have had: <FrTraits, 0> or <8, 0>)
 _KERNEL_SYMBOLS = {
-    "field_binop (fr mul)": "binop_kernel<8, 0>",
-    "field_inv (fr)": "inv_kernel<8>",
-    "ntt_block_stages": "block_stages_kernel",
-    "ntt_cross_stage": "cross_stage_kernel",
-    "g1_add (2^16 points)": "add_kernel",
-    "g1_double (2^16 points)": "double_kernel",
-    "bucket_fold (largest fold of the prove)": "fold_kernel<false>",
-    "combine_windows (c=10, W=26)": "combine_kernel",
+    "field_binop (fr mul)": ("binop_kernel<FrTraits, 0>", "binop_kernel<8, 0>"),
+    "field_inv (fr)": ("inv_kernel<FrTraits>", "inv_kernel<8>"),
+    "ntt_block_stages": ("block_stages_kernel",),
+    "ntt_cross_stage": ("cross_stage_kernel",),
+    "g1_add (2^16 points)": ("::add_kernel",),
+    "g1_add (1539 points, the scans)": ("::add_kernel",),
+    "g1_double (2^16 points)": ("::double_kernel",),
+    "bucket_fold (largest fold of the prove)": ("fold_kernel<false>",),
+    "bucket_fold (classic [16384, 128])": ("fold_kernel<false>",),
+    "combine_windows (c=10, W=26)": ("combine_kernel",),
+    # the ladder: one scalar_mul launch, or the host loop's double and add
+    "scalar_mul_batch (2 points)": ("scalar_mul_kernel", "::add_kernel", "::double_kernel"),
+    "scalar_mul_batch (512 points)": ("scalar_mul_kernel", "::add_kernel", "::double_kernel"),
 }
 
 
@@ -90,6 +100,7 @@ def _kernel_device_times(torch, reps: int = 20) -> dict:
     from chip_smoke import FOLD_JOBS, fold_layout, random_elements
     from marlin_tpu_torch.ops import bigint as bi
     from marlin_tpu_torch.ops import curve, fq, fr, msm, ntt
+    from marlin_tpu_torch.ops import curve_device as cd
 
     rng = np.random.default_rng(3)
     n = 1 << 16
@@ -109,31 +120,46 @@ def _kernel_device_times(torch, reps: int = 20) -> dict:
     layout = fold_layout(torch, table, FOLD_JOBS, 11)
     windows = tuple(torch.as_tensor(random_elements(np, rng, fq.CTX, 26), device=dev)[:, None]
                     for _ in range(3))
+    # the classic route's largest fold: 16 windows x 1024 buckets, ~64 of 128 slots filled
+    classic = torch.randint(-n, n + 1, (16384, 128), dtype=torch.int32, device=dev)
+    classic[:, 64:] = 0
+    xy_n = xy[:n].contiguous()
+    scans = [tuple(c[:1539].contiguous() for c in pt) for pt in (p, q)]
+    ladder = {}
+    for m in (2, 512):
+        sc = torch.as_tensor(random_elements(np, rng, fr.CTX, max(m, 4))[:m], device=dev)
+        ladder[m] = (tuple(c[:m].contiguous() for c in p), bi.from_mont(fr.CTX, sc))
     calls = {
         "field_binop (fr mul)": lambda: bi.binop_kernel("mul", fr.CTX, a, b),
         "field_inv (fr)": lambda: bi.inv_kernel(fr.CTX, a),
         "ntt_block_stages": lambda: ntt.block_stages_kernel(x, tw, ntt.BLOCK_LOG2),
         "ntt_cross_stage": lambda: ntt.cross_stage_kernel(x, tw, 15),
         "g1_add (2^16 points)": lambda: curve.add_kernel(p, q),
+        "g1_add (1539 points, the scans)": lambda: curve.add_kernel(*scans),
         "g1_double (2^16 points)": lambda: curve.double_kernel(p),
         "bucket_fold (largest fold of the prove)": lambda: curve.bucket_fold_kernel(xy, layout),
+        "bucket_fold (classic [16384, 128])": lambda: curve.bucket_fold_kernel(xy_n, classic),
         "combine_windows (c=10, W=26)": lambda: curve.combine_windows_kernel(windows, 10),
+        "scalar_mul_batch (2 points)": lambda: cd.scalar_mul_batch(*ladder[2], 255),
+        "scalar_mul_batch (512 points)": lambda: cd.scalar_mul_batch(*ladder[512], 255),
     }
     out = {}
     for label, fn in calls.items():
         fn()
         torch.cuda.synchronize()
+        calls_made = 5 if label.startswith("scalar_mul_batch") else reps
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            for _ in range(calls_made):
                 fn()
             torch.cuda.synchronize()
         total_us, count = 0.0, 0
         for ev in prof.key_averages():
-            if getattr(ev, "device_type", None) == DeviceType.CUDA and _KERNEL_SYMBOLS[label] in ev.key:
+            if getattr(ev, "device_type", None) == DeviceType.CUDA and any(
+                    sym in ev.key for sym in _KERNEL_SYMBOLS[label]):
                 total_us += getattr(ev, "self_device_time_total", 0) or 0
                 count += ev.count
-        out[label] = {"device_us_per_launch": total_us / count if count else None,
-                      "launches": count}
+        out[label] = {"device_us_per_call": total_us / calls_made,
+                      "launches_per_call": count / calls_made}
     return out
 
 
