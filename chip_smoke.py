@@ -13,7 +13,11 @@ Phases, each printing one line of JSON:
    shape, each with its own sub-row count, fast and exact, and a lane that
    meets P == Q; the ladder at the prove's 2 points and at 512, with
    identity points and scalars 0, 1 and r - 1; identity window sums, and
-   128 of them); each timed with CUDA events beside its plain version;
+   128 of them; the batch inversion at Fr 2^16, 2^14 and one element and
+   at the table build's 25 x 2^16 Fq, zeros at a thread's and a block's
+   edges; the NTT at each of the prove's transform shapes, whole
+   transforms and each stage kernel, forward and inverse); each timed with
+   CUDA events beside its plain version;
 4. small   — a one-constraint circuit (SRS 32/32/96) proved under
    `test_rng()` on the CPU (plain versions) and on the card: equal proof
    bytes, the card's proof verifies, a wrong input and a flipped byte are
@@ -26,7 +30,9 @@ Phases, each printing one line of JSON:
    prove, verify, with phase and round seconds and each kernel's launch
    count, all of which but the window combine's must be above 0; the proof
    must verify and be 855 B; the prove reruns no MSM, calls no host MSM,
-   and runs its ladder in one scalar_mul launch and no doubling launch;
+   runs its ladder in one scalar_mul launch and no doubling launch, each
+   inversion in one launch, and each NTT in one block-stage launch plus one
+   per stage above 2^10, with no gather op and no Fr product of its own;
 7. classic — the same prove from the same rng state with
    `MARLIN_TPU_MSM_TABLE=0`, every MSM on the classic Pippenger: equal
    proof bytes, the window combine launched once per MSM job, no host MSM
@@ -43,8 +49,9 @@ Phases, each printing one line of JSON:
    card (equal proof bytes), then at 2^14 on the card: the proof verifies
    at 759 B, with no host MSM call.
 
-The build phase also records each curve kernel's registers, stack frame and
-spills (`ptxas -v`, which must show no spill), and the integer multiplies of
+The build phase also records the curve, inversion and NTT block kernels'
+registers, stack frame and spills (`ptxas -v`, which must show no spill),
+and the integer multiplies of
 one Fq and one Fr product in this build's SASS (tools/sass_count.py), which
 the operation bounds use.  Then the kernel table, the card's name and power
 limit, and, as the last line, `{"ok": true, "device": {...}}`.  Any failure
@@ -84,8 +91,13 @@ MAIN_LOG2 = 14
 FR_N = 1 << 16
 FQ_N = 1 << 14
 MONT_N = 4096
-NTT_SHAPES = ((1 << 14,), (1 << 16,), (4, 1 << 16))
-NTT_CROSS_STAGE = 15
+# kernel 2: |K|, |H| and one opening point's z^-1; then the table build's one
+# Fq normalization, W - 1 = 25 blocks of the 65,536-power SRS
+INV_SHAPES = (("fr", 1 << 16), ("fr", 1 << 14), ("fr", 1), ("fq", 25 << 16))
+# kernel 3: the 2^14 prove's transform shapes (|H| and its batches of 2 and
+# 3; |K| = 2^16 alone and in batches of 2 and 4; 2^17 in a batch of 2)
+NTT_PROVE_SHAPES = ((1 << 14,), (2, 1 << 14), (3, 1 << 14), (1 << 16,), (2, 1 << 16), (4, 1 << 16),
+                    (2, 1 << 17))
 # kernel 4 at the table build's width; kernel 5 at the 2^14 prove's largest
 # fold: round 3's three jobs of 2^16 - 1 scalars (offsets 0, 1, 0)
 CURVE_N = 1 << 16
@@ -186,14 +198,18 @@ def ptxas_report(path: str) -> dict:
     return out
 
 
-# the curve kernels whose ptxas report must show no spill, by symbol fragment
-NO_SPILL = {"g1_add": "add_kernel", "g1_double": "double_kernel", "g1_scalar_mul": "scalar_mul_kernel",
-            "bucket_fold": "fold_kernelILb0E", "bucket_fold_exact": "fold_kernelILb1E"}
+# the kernels whose ptxas report must show no spill: source, symbol fragment
+NO_SPILL = {"g1_add": ("curve.cu", "add_kernel"), "g1_double": ("curve.cu", "double_kernel"),
+            "g1_scalar_mul": ("curve.cu", "scalar_mul_kernel"),
+            "bucket_fold": ("curve.cu", "fold_kernelILb0E"), "bucket_fold_exact": ("curve.cu", "fold_kernelILb1E"),
+            "field_inv_fr": ("field.cu", "batch_inv_kernelI8FrTraitsE"),
+            "field_inv_fq": ("field.cu", "batch_inv_kernelI8FqTraitsE"),
+            "ntt_block_stages": ("ntt.cu", "block_stages_kernel")}
 
 
 def phase_build(torch) -> dict:
-    """Build the kernels; record the curve kernels' registers and spills and
-    the multiplies of one product."""
+    """Build the kernels; record the curve, inversion and NTT block kernels'
+    registers and spills and the multiplies of one product."""
     global PEAK_OPS_PER_S
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     import sass_count
@@ -202,10 +218,11 @@ def phase_build(torch) -> dict:
 
     secs = cuda.build()
     cuda.lib()
-    report = ptxas_report(os.path.join(cuda._BUILD_DIR, "curve.cu.ptxas.txt"))
+    reports = {src: ptxas_report(os.path.join(cuda._BUILD_DIR, src + ".ptxas.txt"))
+               for src in ("curve.cu", "field.cu", "ntt.cu")}
     ptxas = {}
-    for label, frag in NO_SPILL.items():
-        hits = [v for k, v in report.items() if frag in k and "registers" in v]
+    for label, (src, frag) in NO_SPILL.items():
+        hits = [v for k, v in reports[src].items() if frag in k and "registers" in v]
         require(len(hits) == 1, f"ptxas: {len(hits)} reports for {label}")
         ptxas[label] = hits[0]
         require(hits[0].get("spill_stores", 0) == 0 and hits[0].get("spill_loads", 0) == 0,
@@ -241,7 +258,7 @@ def random_elements(np, rng, ctx, n: int):
 
 def phase_kernels(torch, np) -> dict:
     from marlin_tpu_torch.ops import bigint as bi
-    from marlin_tpu_torch.ops import cuda, fq, fr, mont, ntt
+    from marlin_tpu_torch.ops import cuda, fq, fr, mont
 
     rng = np.random.default_rng(1)
     dev = torch.device(DEV)
@@ -280,76 +297,8 @@ def phase_kernels(torch, np) -> dict:
         "bound_ms": b_bytes, "bound_by": b_by, "library_ms": None,
     }
 
-    # kernel 2: inversion at 2^16 with zeros mixed in
-    x = torch.as_tensor(random_elements(np, rng, fr.CTX, n16), device=dev)
-    x[torch.as_tensor(rng.choice(n16, 64, replace=False), device=dev)] = 0
-    inv_k = bi.inv_kernel(fr.CTX, x)
-    inv_p = bi.inv_mod(fr.CTX, x)
-    e_inv = err(inv_k, inv_p)
-    require(bool((inv_k[(x == 0).all(-1)] == 0).all()), "inv(0) != 0")
-    # the products of the nonzero inputs with their inverses must be one
-    prod = bi.binop_kernel("mul", fr.CTX, x, inv_k)
-    nz = ~(x == 0).all(-1)
-    one = torch.as_tensor(fr.CTX.one_limbs.astype(np.int32), device=dev)
-    require(bool((prod[nz] == one).all()), "x * inv(x) != 1")
-    e_bits = fr.CTX.inv_exp_bits
-    inv_muls = len(e_bits) + int(e_bits.sum())
-    b_ms, b_by = bound(2 * n16 * 64, product_ops("fr", n16 * inv_muls))
-    results["field_inv"] = {
-        "route": "cuda", "source": "marlin_tpu_torch/csrc/field.cu",
-        "replaces": "marlin_tpu/ops/pallas/field.py:126",
-        "max_abs_err": e_inv, "shape": f"fr [{n16}, 16]",
-        "ms": time_ms(torch, lambda: bi.inv_kernel(fr.CTX, x), reps=10),
-        "plain_ms": time_ms(torch, lambda: bi.inv_mod(fr.CTX, x), reps=1, warmup=0),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-    }
-
-    # kernel 3: whole transforms against the plain twins, then each stage kernel
-    ntt_checks = []
-    ntt_err = 0
-    for shape in NTT_SHAPES:
-        flat = int(np.prod(shape))
-        v = torch.as_tensor(random_elements(np, rng, fr.CTX, flat), device=dev).reshape(*shape, fr.L)
-        for inverse in (False, True):
-            k_out = ntt.transform(v, inverse)
-            p_out = ntt.transform(v, inverse, plain=True)
-            e = err(k_out, p_out)
-            ntt_checks.append({"shape": list(shape), "inverse": inverse, "max_abs_err": e})
-            ntt_err = max(ntt_err, e)
-    # ntt_many == per-poly ntt, and intt(ntt(p)) == p
-    polys = [torch.as_tensor(random_elements(np, rng, fr.CTX, n16 // 2 - 3 * i), device=dev) for i in range(4)]
-    many = ntt.ntt_many(polys, n16)
-    for p, m in zip(polys, many):
-        require(torch.equal(m, ntt.ntt(p, n16)), "ntt_many != ntt")
-        require(torch.equal(ntt.intt(m)[: p.shape[0]], p), "intt(ntt(p)) != p")
-
-    rev, tw = ntt._plan_tensors(n16, False, dev)
-    base = torch.as_tensor(random_elements(np, rng, fr.CTX, n16), device=dev)
-    log_b = ntt.BLOCK_LOG2
-    e_blk = err(ntt.block_stages_kernel(base.clone(), tw, log_b), ntt.block_stages_plain(base, tw, log_b))
-    s_top = NTT_CROSS_STAGE
-    e_cross = err(ntt.cross_stage_kernel(base.clone(), tw, s_top), ntt.cross_stage_plain(base, tw, s_top))
-    scratch = base.clone()
-    blk_bytes = 2 * n16 * 64 + ((1 << log_b) - 1) * 64
-    b_ms, b_by = bound(blk_bytes, product_ops("fr", (n16 // 2) * log_b))
-    results["ntt_block_stages"] = {
-        "route": "cuda", "source": "marlin_tpu_torch/csrc/ntt.cu",
-        "replaces": "marlin_tpu/ops/pallas/ntt.py:91",
-        "max_abs_err": max(ntt_err, e_blk), "checks": ntt_checks,
-        "shape": f"[{n16}, 16], {log_b} stages",
-        "ms": time_ms(torch, lambda: ntt.block_stages_kernel(scratch, tw, log_b)),
-        "plain_ms": time_ms(torch, lambda: ntt.block_stages_plain(base, tw, log_b), reps=5),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-    }
-    b_ms, b_by = bound(2 * n16 * 64 + (1 << s_top) * 64, product_ops("fr", n16 // 2))
-    results["ntt_cross_stage"] = {
-        "route": "cuda", "source": "marlin_tpu_torch/csrc/ntt.cu",
-        "replaces": "marlin_tpu/ops/pallas/ntt.py:91",
-        "max_abs_err": max(ntt_err, e_cross), "shape": f"[{n16}, 16], stage {s_top}",
-        "ms": time_ms(torch, lambda: ntt.cross_stage_kernel(scratch, tw, s_top)),
-        "plain_ms": time_ms(torch, lambda: ntt.cross_stage_plain(base, tw, s_top), reps=5),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-    }
+    results["field_inv"] = inversion_row(torch, np, rng, err)
+    results.update(ntt_rows(torch, np, rng, err))
 
     # kernel 7 of the TPU package: mont_mul on [4096, 16] (an entry into kernel 1)
     ma = torch.as_tensor(random_elements(np, rng, fr.CTX, MONT_N), device=dev)
@@ -370,6 +319,121 @@ def phase_kernels(torch, np) -> dict:
     results.update(phase_curve_kernels(torch, np))
     cuda.reset_launches()
     return results
+
+
+def inversion_row(torch, np, rng, err) -> dict:
+    """Kernel 2 at the prove's sizes (|K|, |H|, one opening point) and at the
+    table build's Fq normalization, zeros at the edges of a thread's run and
+    of a block; each against the plain batch inversion, with x * x^-1 = 1."""
+    from marlin_tpu_torch.ops import bigint as bi
+    from marlin_tpu_torch.ops import fq, fr
+
+    dev = torch.device(DEV)
+    ctxs = {"fr": fr.CTX, "fq": fq.CTX}
+    shapes = []
+    for field, n in INV_SHAPES:
+        ctx = ctxs[field]
+        # the edge values 0, 1, N-1, N-2 first; one random element for n = 1
+        x = torch.as_tensor(random_elements(np, rng, ctx, max(n, 5))[-n:], device=dev).contiguous()
+        if n > 256:
+            x[torch.as_tensor([0, 127, 128, 255, n - 1], device=dev)] = 0
+        got = bi.inv_kernel(ctx, x)
+        e = err(got, bi.inv_mod(ctx, x))
+        zero = (x == 0).all(-1)
+        require(bool((got[zero] == 0).all()), f"inv(0) != 0 ({field}, {n})")
+        one = torch.as_tensor(ctx.one_limbs.astype(np.int32), device=dev)
+        require(bool((bi.binop_kernel("mul", ctx, x, got)[~zero] == one).all()), f"x * inv(x) != 1 ({field}, {n})")
+        nbytes = 2 * n * (FQ_BYTES if field == "fq" else 64)
+        # the batch trick's ~3 products an element (the root's Euclid is word
+        # subtractions and shifts, a few hundred multiplies)
+        b_ms, b_by = bound(nbytes, product_ops(field, 3 * n))
+        e_exp = ctx.modulus - 2
+        fermat_ms, _ = bound(nbytes, product_ops(field, n * (e_exp.bit_length() + bin(e_exp).count("1"))))
+        big = n > (1 << 20)
+        shapes.append({
+            "shape": f"{field} [{n}, {ctx.L}]", "max_abs_err": e, "zeros": int(zero.sum()),
+            "ms": time_ms(torch, lambda: bi.inv_kernel(ctx, x), reps=10),
+            "plain_ms": time_ms(torch, lambda: bi.inv_mod(ctx, x), reps=1 if big else 3, warmup=0 if big else 1),
+            "bound_ms": b_ms, "bound_by": b_by, "fermat_bound_ms": fermat_ms,
+        })
+    head = shapes[0]
+    return {
+        "route": "cuda", "source": "marlin_tpu_torch/csrc/field.cu",
+        "replaces": "marlin_tpu/ops/pallas/field.py:126",
+        "max_abs_err": max(r["max_abs_err"] for r in shapes), "shape": head["shape"],
+        "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": None, "shapes": shapes,
+        "note": "bound: 3 products an element (the batch trick); fermat_bound_ms: the TPU kernel's "
+                "x^(N-2), N-2's bits squarings and its set bits products an element",
+    }
+
+
+def ntt_rows(torch, np, rng, err) -> dict:
+    """Kernel 3 at the prove's shapes: whole transforms forward and inverse
+    against the plain route, then each stage kernel against its plain twin,
+    timed: 3(a) forward (its gather) and inverse (its gather and n^-1),
+    3(b) at the last stage."""
+    from marlin_tpu_torch.ops import fr, ntt
+
+    dev = torch.device(DEV)
+    checks = []
+    blocks, crosses = [], []
+    for shape in NTT_PROVE_SHAPES:
+        n, total = shape[-1], int(np.prod(shape))
+        log_n = n.bit_length() - 1
+        v = torch.as_tensor(random_elements(np, rng, fr.CTX, total), device=dev).reshape(*shape, fr.L)
+        for inverse in (False, True):
+            e = err(ntt.transform(v, inverse), ntt.transform(v, inverse, plain=True))
+            checks.append({"shape": list(shape), "inverse": inverse, "max_abs_err": e})
+        flat = v.reshape(-1, fr.L)
+        log_b = min(log_n, ntt.BLOCK_LOG2)
+        row = {"shape": f"{list(shape)}, {log_b} stages"}
+        # forward (the gather), then inverse (the gather and n^-1)
+        for label, inverse in (("", False), ("inverse_", True)):
+            tw, scale = ntt._plan_tensors(n, inverse, dev)
+            kb = ntt.block_stages_kernel(flat, tw, log_b, log_n, scale)
+            pb = ntt.block_stages_plain(flat, tw, log_b, log_n, scale)
+            b_ms, b_by = bound(2 * total * 64 + ((1 << log_b) - 1) * 64,
+                               product_ops("fr", total // 2 * log_b + (total if inverse else 0)))
+            row.update({
+                f"{label}max_abs_err": err(kb, pb),
+                f"{label}ms": time_ms(torch, lambda: ntt.block_stages_kernel(flat, tw, log_b, log_n, scale)),
+                f"{label}plain_ms": time_ms(torch, lambda: ntt.block_stages_plain(flat, tw, log_b, log_n, scale),
+                                            reps=3),
+                f"{label}bound_ms": b_ms, f"{label}bound_by": b_by,
+            })
+        row["max_abs_err"] = max(row["max_abs_err"], row.pop("inverse_max_abs_err"))
+        blocks.append(row)
+        # the last stage, where 2^(s+1) = n, on the inverse plan's block output
+        s_top = log_n - 1
+        scratch = kb.clone()
+        e_cross = err(ntt.cross_stage_kernel(kb.clone(), tw, s_top), ntt.cross_stage_plain(pb, tw, s_top))
+        b_ms, b_by = bound(2 * total * 64 + (n // 2) * 64, product_ops("fr", total // 2))
+        crosses.append({
+            "shape": f"{list(shape)}, stage {s_top}", "max_abs_err": e_cross,
+            "ms": time_ms(torch, lambda: ntt.cross_stage_kernel(scratch, tw, s_top)),
+            "plain_ms": time_ms(torch, lambda: ntt.cross_stage_plain(pb, tw, s_top), reps=3),
+            "bound_ms": b_ms, "bound_by": b_by,
+        })
+    # ntt_many == per-poly ntt, and intt(ntt(p)) == p
+    n16 = FR_N
+    polys = [torch.as_tensor(random_elements(np, rng, fr.CTX, n16 // 2 - 3 * i), device=dev) for i in range(4)]
+    for p, m in zip(polys, ntt.ntt_many(polys, n16)):
+        require(torch.equal(m, ntt.ntt(p, n16)), "ntt_many != ntt")
+        require(torch.equal(ntt.intt(m)[: p.shape[0]], p), "intt(ntt(p)) != p")
+    e_whole = max(c["max_abs_err"] for c in checks)
+    out = {}
+    for name, rows in (("ntt_block_stages", blocks), ("ntt_cross_stage", crosses)):
+        head = rows[NTT_PROVE_SHAPES.index((FR_N,))]  # 2^16 alone, the earlier PRs' row
+        out[name] = {
+            "route": "cuda", "source": "marlin_tpu_torch/csrc/ntt.cu",
+            "replaces": "marlin_tpu/ops/pallas/ntt.py:91",
+            "max_abs_err": max([e_whole] + [r["max_abs_err"] for r in rows]), "shape": head["shape"],
+            "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"], "library_ms": None, "shapes": rows,
+        }
+    out["ntt_block_stages"]["checks"] = checks
+    return out
 
 
 def curve_points(np, n: int, seed: int) -> list:
@@ -757,7 +821,7 @@ def phase_medium(torch) -> dict:
 
 def phase_main(torch) -> tuple:
     from marlin_tpu_torch.fields import bls12_381 as P
-    from marlin_tpu_torch.ops import cuda
+    from marlin_tpu_torch.ops import cuda, ntt
     from marlin_tpu_torch.snark import ahp, kzg
     from marlin_tpu_torch.snark.domains import compute_size_of_domain
     from marlin_tpu_torch.snark.marlin import Marlin
@@ -788,7 +852,7 @@ def phase_main(torch) -> tuple:
     rng_at_prove = copy.deepcopy(rng)
     profiling.enable(True)
     profiling.collect()
-    with counted_msm_calls() as seen, contextlib.redirect_stdout(io.StringIO()):
+    with counted_msm_calls() as seen, watched_transforms() as watched, contextlib.redirect_stdout(io.StringIO()):
         proof = timed("prove", lambda: Marlin.prove(pk, circ, rng, device=DEV))
     spans = profiling.collect()
     profiling.enable(False)
@@ -812,6 +876,8 @@ def phase_main(torch) -> tuple:
         prove_msm_jobs=seen["jobs"],
         prove_exact_reruns=prove_reruns,
         prove_host_msm_calls=seen["host_calls"],
+        prove_inversions=watched["inversions"],
+        prove_transforms=watched["transforms"],
         proof_bytes=proof.serialized_size(),
         verifies=bool(ok),
     )
@@ -831,10 +897,78 @@ def phase_main(torch) -> tuple:
     require(prove_launches["g1_double"] == 0,
             f"the 2^14 prove launched the doubling {prove_launches['g1_double']} times, expected none")
     require(prove_reruns == 0, f"the 2^14 prove reran {prove_reruns} MSM batches")
+    # kernel 2: one launch per inversion; kernel 3: one 3(a) launch per
+    # transform plus one 3(b) per stage above 2^10, no gather op outside the
+    # kernel and no n^-1 product
+    require(prove_launches["field_inv"] == len(watched["inversions"]) > 0
+            and all(i["launches"] == 1 for i in watched["inversions"]),
+            f"the prove's inversions: {watched['inversions']}, {prove_launches['field_inv']} launches")
+    require(len(watched["transforms"]) > 0, "the prove ran no NTT")
+    for t in watched["transforms"]:
+        log_n = t["shape"][-1].bit_length() - 1
+        want = (1, log_n - min(log_n, ntt.BLOCK_LOG2)) if log_n else (0, 0)
+        require((t["block_launches"], t["cross_launches"]) == want and t["fr_mul_launches"] == 0
+                and not set(t["ops"]) & GATHER_OPS, f"an NTT of the prove ran outside its kernels: {t}")
     require(seen["host_calls"] == 0, f"the 2^14 prove called the host MSM {seen['host_calls']} times")
     state = {"pk": pk, "vk": vk, "circ": circ, "public": public, "rng": rng_at_prove,
              "proof": proof.to_bytes()}
     return rec, state
+
+
+# the aten ops a bit-reversal gather would run
+GATHER_OPS = {"aten.index_select", "aten.index", "aten.gather", "aten.take"}
+
+
+@contextlib.contextmanager
+def watched_transforms():
+    """Record each NTT transform (its kernel launches, its Fr product
+    launches and the aten ops it dispatches) and each inversion (its kernel
+    launches) while the context is open."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from marlin_tpu_torch.ops import cuda, ntt, routing
+
+    seen = {"transforms": [], "inversions": []}
+    transform, inv = ntt.transform, routing.inv
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.add(str(func.overloadpacket))
+            return func(*args, **(kwargs or {}))
+
+    with Ops():  # the first dispatch mode of a process takes seconds to set up
+        torch.empty(1)
+
+    def watched_transform(x, inverse, *args, **kwargs):
+        before = dict(cuda.LAUNCHES)
+        muls = cuda.BINOP_LAUNCHES.get(("fr", "mul"), 0)
+        with Ops() as ops:
+            y = transform(x, inverse, *args, **kwargs)
+        seen["transforms"].append({
+            "shape": list(x.shape[:-1]), "inverse": inverse,
+            "block_launches": cuda.LAUNCHES["ntt_block_stages"] - before["ntt_block_stages"],
+            "cross_launches": cuda.LAUNCHES["ntt_cross_stage"] - before["ntt_cross_stage"],
+            "fr_mul_launches": cuda.BINOP_LAUNCHES.get(("fr", "mul"), 0) - muls,
+            "ops": sorted(ops.names)})
+        return y
+
+    def watched_inv(ctx, x):
+        before = cuda.LAUNCHES["field_inv"]
+        y = inv(ctx, x)
+        seen["inversions"].append({"field": ctx.name, "n": x.numel() // ctx.L,
+                                   "launches": cuda.LAUNCHES["field_inv"] - before})
+        return y
+
+    ntt.transform, routing.inv = watched_transform, watched_inv
+    try:
+        yield seen
+    finally:
+        ntt.transform, routing.inv = transform, inv
 
 
 @contextlib.contextmanager

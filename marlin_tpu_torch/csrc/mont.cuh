@@ -40,24 +40,20 @@
 #define MARLIN_MAX_NL 12
 
 // The per-modulus words that the Python side passes (ModCtx.kernel_params in
-// marlin_tpu_torch/ops/bigint.py, 38 words).  The kernels compute with the
+// marlin_tpu_torch/ops/bigint.py, 25 words).  The kernels compute with the
 // traits below; the host entries of field.cu and ntt.cu check these words
 // against them, so a context that does not match a compiled field is refused.
 struct ModParams {
   uint32_t n[MARLIN_MAX_NL];    // modulus N
   uint32_t np0;                 // -N^{-1} mod 2^32
-  uint32_t e[MARLIN_MAX_NL];    // N - 2, the Fermat exponent
   uint32_t one[MARLIN_MAX_NL];  // R mod N (Montgomery one)
-  uint32_t ebits;               // bit length of N - 2
 };
 
 static inline ModParams mod_params_from_words(const uint32_t* w) {
   ModParams p;
   for (int i = 0; i < MARLIN_MAX_NL; i++) p.n[i] = w[i];
   p.np0 = w[MARLIN_MAX_NL];
-  for (int i = 0; i < MARLIN_MAX_NL; i++) p.e[i] = w[MARLIN_MAX_NL + 1 + i];
-  for (int i = 0; i < MARLIN_MAX_NL; i++) p.one[i] = w[2 * MARLIN_MAX_NL + 1 + i];
-  p.ebits = w[3 * MARLIN_MAX_NL + 1];
+  for (int i = 0; i < MARLIN_MAX_NL; i++) p.one[i] = w[MARLIN_MAX_NL + 1 + i];
   return p;
 }
 
@@ -82,6 +78,15 @@ struct FqTraits {
       case 9: return 0x5c071a97u;  case 10: return 0xfa80e493u; default: return 0x15f65ec3u;
     }
   }
+  // R^3 mod N: a Montgomery product by it multiplies by R^2
+  __host__ __device__ static constexpr uint32_t r3(int j) {
+    switch (j) {
+      case 0: return 0xd94ca1e0u;  case 1: return 0xed48ac6bu;  case 2: return 0x03a7adf8u;
+      case 3: return 0x315f831eu;  case 4: return 0x615e29ddu;  case 5: return 0x9a53352au;
+      case 6: return 0x921e1761u;  case 7: return 0x34c04e5eu;  case 8: return 0x65724728u;
+      case 9: return 0x2512d435u;  case 10: return 0x91755d4du; default: return 0x0aa63460u;
+    }
+  }
 };
 
 // BLS12-381 scalar field Fr: N = 0x73eda753...00000001 (255 bits), R = 2^256.
@@ -103,27 +108,25 @@ struct FrTraits {
       case 6: return 0xacc5056fu;  default: return 0x1824b159u;
     }
   }
+  __host__ __device__ static constexpr uint32_t r3(int j) {
+    switch (j) {
+      case 0: return 0x439b73afu;  case 1: return 0xc62c1807u;  case 2: return 0x8cf06990u;
+      case 3: return 0x1b3e0d18u;  case 4: return 0xc7b5f418u;  case 5: return 0x73d13c71u;
+      case 6: return 0xc8db33e9u;  default: return 0x6e2a5bb9u;
+    }
+  }
 };
 
 static_assert(FqTraits::n(FqTraits::NL - 1) < 0x80000000u, "Fq needs a spare top bit");
 static_assert(FrTraits::n(FrTraits::NL - 1) < 0x80000000u, "Fr needs a spare top bit");
 
-// Limb w of N - 2, the Fermat exponent.
-template <class F>
-__host__ __device__ constexpr uint32_t exponent_limb(int w) {
-  uint32_t borrow = 2;
-  for (int j = 0; j < w; j++) borrow = F::n(j) < borrow ? 1u : 0u;
-  return F::n(w) - borrow;
-}
-
 // Whether the words from the Python side describe the compiled field F.
 template <class F>
 static inline bool params_match(const ModParams& p) {
-  bool ok = p.np0 == F::NP0 && p.ebits == (uint32_t)F::BITS;
+  bool ok = p.np0 == F::NP0;
   for (int j = 0; j < MARLIN_MAX_NL; j++) {
     const bool in = j < F::NL;
-    ok = ok && p.n[j] == (in ? F::n(j) : 0u) && p.one[j] == (in ? F::one(j) : 0u) &&
-         p.e[j] == (in ? exponent_limb<F>(j) : 0u);
+    ok = ok && p.n[j] == (in ? F::n(j) : 0u) && p.one[j] == (in ? F::one(j) : 0u);
   }
   return ok;
 }
@@ -357,16 +360,142 @@ __device__ __forceinline__ void fe_sub(uint32_t r[F::NL], const uint32_t a[F::NL
   r[NL - 1] = ptx::addc(d[NL - 1], F::n(NL - 1) & mask);
 }
 
-// x^(N-2) by left-to-right square-and-multiply; 0 maps to 0.  The exponent
-// is the same for every thread, so the branch never diverges.
-template <class F>
-__device__ __forceinline__ void fe_inv(uint32_t r[F::NL], const uint32_t x[F::NL]) {
-  uint32_t acc[F::NL];
-  fe_set_one<F>(acc);
+// ---------------------------------------------------------------------------
+// The binary inversion of one element (kernel 2's root, csrc/field.cu).
+// Multi-word helpers on NL-word integers, not residues.
+
+template <int NL>
+__device__ __forceinline__ bool mp_is_zero(const uint32_t a[NL]) {
+  uint32_t o = a[0];
+#pragma unroll
+  for (int j = 1; j < NL; j++) o |= a[j];
+  return o == 0u;
+}
+
+// r = a - b; -> all ones if a < b (a borrow out of the top word), else 0.
+// r may alias a or b.
+template <int NL>
+__device__ __forceinline__ uint32_t mp_sub(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL]) {
+  r[0] = ptx::sub_cc(a[0], b[0]);
+#pragma unroll
+  for (int j = 1; j < NL; j++) r[j] = ptx::subc_cc(a[j], b[j]);
+  return ptx::subc(0u, 0u);
+}
+
+// r = a + b, for a sum the caller knows to fit NL words
+template <int NL>
+__device__ __forceinline__ void mp_add(uint32_t r[NL], const uint32_t a[NL], const uint32_t b[NL]) {
+  r[0] = ptx::add_cc(a[0], b[0]);
+#pragma unroll
+  for (int j = 1; j < NL - 1; j++) r[j] = ptx::addc_cc(a[j], b[j]);
+  r[NL - 1] = ptx::addc(a[NL - 1], b[NL - 1]);
+}
+
+// w >>= c, for 0 < c < 32
+template <int NL>
+__device__ __forceinline__ void mp_shr(uint32_t w[NL], int c) {
+#pragma unroll
+  for (int j = 0; j < NL - 1; j++) w[j] = __funnelshift_r(w[j], w[j + 1], c);
+  w[NL - 1] >>= c;
+}
+
+// z <<= c, for 0 < c < 32 and z's top c bits zero
+template <int NL>
+__device__ __forceinline__ void mp_shl(uint32_t z[NL], int c) {
+#pragma unroll
+  for (int j = NL - 1; j > 0; j--) z[j] = __funnelshift_l(z[j - 1], z[j], c);
+  z[0] <<= c;
+}
+
+// Shifts the trailing zero bits out of w (nonzero) and as many into z;
+// -> their count.
+template <int NL>
+__device__ __forceinline__ int mp_shift_out(uint32_t w[NL], uint32_t z[NL]) {
+  int total = 0;
 #pragma unroll 1
-  for (int i = F::BITS - 1; i >= 0; i--) {
-    fe_mul<F>(acc, acc, acc);
-    if ((exponent_limb<F>(i >> 5) >> (i & 31)) & 1u) fe_mul<F>(acc, acc, x);
+  while ((w[0] & 1u) == 0u) {
+    const int c = w[0] ? __ffs(w[0]) - 1 : 31;
+    mp_shr<NL>(w, c);
+    mp_shl<NL>(z, c);
+    total += c;
   }
-  fe_copy<F::NL>(r, acc);
+  return total;
+}
+
+// x = x / 2^c mod N for canonical x and 0 < c < 32: with m = x (-N^-1)
+// mod 2^c, x + m N is a multiple of 2^c and (x + m N) / 2^c < 2N.
+template <class F>
+__device__ __forceinline__ void fe_halve_bits(uint32_t x[F::NL], int c) {
+  constexpr int NL = F::NL;
+  const uint32_t m = (x[0] * F::NP0) & ((1u << c) - 1u);
+  uint32_t y[NL + 1];
+  uint64_t carry = 0;
+#pragma unroll
+  for (int j = 0; j < NL; j++) {
+    const uint64_t t = (uint64_t)m * F::n(j) + x[j] + carry;
+    y[j] = (uint32_t)t;
+    carry = t >> 32;
+  }
+  y[NL] = (uint32_t)carry;
+#pragma unroll
+  for (int j = 0; j < NL; j++) x[j] = __funnelshift_r(y[j], y[j + 1], c);
+  fe_reduce_once<F>(x, x);
+}
+
+// x^-1 in Montgomery form (in and out) for a canonical x != 0, by
+// Kaliski's almost-Montgomery inverse: a binary extended Euclid on u = N,
+// v = x with r = 0, s = 1, keeping N = u s + v r, so r and s never exceed
+// N and need no reduction.  Each round subtracts the smaller of u and v
+// from the larger, adds r + s, and shifts all the new value's trailing
+// zeros out at once (the other coefficient shifts up by as many); k counts
+// the shifts.  It ends with r = -x^-1 2^k mod N, about 180 rounds for Fr
+// and 270 for Fq (k ~ 1.4 log2 N).  Then N - r is halved k times, 31 bits
+// a step (fe_halve_bits), giving x^-1; a Montgomery product by R^3 makes
+// it x^-1 R^2, which is (a R)^-1 R^2 = a^-1 R for the Montgomery form x = a R.
+// Variable time, like the reference's ark-ff binary Euclid.
+template <class F>
+__device__ __forceinline__ void fe_inv_binary(uint32_t out[F::NL], const uint32_t x[F::NL]) {
+  constexpr int NL = F::NL;
+  uint32_t u[NL], v[NL], r[NL], s[NL], d[NL], w[NL];
+#pragma unroll
+  for (int j = 0; j < NL; j++) {
+    u[j] = F::n(j);
+    v[j] = x[j];
+    r[j] = 0u;
+    s[j] = j == 0 ? 1u : 0u;
+  }
+  int k = mp_shift_out<NL>(v, r);
+#pragma unroll 1
+  while (true) {  // u and v odd
+    const uint32_t u_below_v = mp_sub<NL>(d, u, v);
+    mp_add<NL>(w, r, s);
+    if (!u_below_v) {
+      if (d[0] == 0u && mp_is_zero<NL>(d)) {  // u == v == 1: v - u = 0 ends it
+        mp_shl<NL>(r, 1);
+        k += 1;
+        break;
+      }
+      fe_copy<NL>(u, d);
+      fe_copy<NL>(r, w);
+      k += mp_shift_out<NL>(u, s);
+    } else {
+      mp_sub<NL>(v, v, u);
+      fe_copy<NL>(s, w);
+      k += mp_shift_out<NL>(v, r);
+    }
+  }
+  // r <= N and r != 0 mod N (x is invertible), so N - (r mod N) is canonical
+  fe_reduce_once<F>(r, r);
+#pragma unroll
+  for (int j = 0; j < NL; j++) u[j] = F::n(j);
+  mp_sub<NL>(r, u, r);  // x^-1 2^k
+#pragma unroll 1
+  while (k > 0) {
+    const int c = k < 31 ? k : 31;
+    fe_halve_bits<F>(r, c);
+    k -= c;
+  }
+#pragma unroll
+  for (int j = 0; j < NL; j++) u[j] = F::r3(j);
+  fe_mul<F>(out, r, u);
 }

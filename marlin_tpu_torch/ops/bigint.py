@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from . import cuda
-from .limbs import LIMB_BITS, LIMB_MASK, int_to_limbs
+from .limbs import LIMB_BITS, LIMB_MASK, int_to_limbs, limbs_to_int
 
 LIMB_DTYPE = torch.int32
 _MAX_NL32 = 12  # csrc/mont.cuh MARLIN_MAX_NL
@@ -76,30 +76,16 @@ class ModCtx:
         return int_to_limbs(1, self.L)
 
     @functools.cached_property
-    def inv_exp_bits(self) -> np.ndarray:
-        """Bits of N-2 (MSB first) for Fermat inversion."""
-        e = self.modulus - 2
-        nbits = e.bit_length()
-        return np.array([(e >> (nbits - 1 - i)) & 1 for i in range(nbits)], dtype=np.uint32)
-
-    @functools.cached_property
     def kernel_params(self) -> np.ndarray:
-        """`ModParams` of csrc/mont.cuh: n[12], np0, e[12], one[12], ebits —
-        the modulus, -N^{-1} mod 2^32, N-2 and R mod N as 32-bit limbs."""
+        """`ModParams` of csrc/mont.cuh: n[12], np0, one[12] — the modulus,
+        -N^{-1} mod 2^32 and R mod N as 32-bit limbs."""
         nl = self.L // 2
         assert nl <= _MAX_NL32
 
         def words(x: int) -> list:
             return [(x >> (32 * i)) & 0xFFFFFFFF for i in range(_MAX_NL32)]
 
-        e = self.modulus - 2
-        out = (
-            words(self.modulus)
-            + [pow(-self.modulus, -1, 1 << 32)]
-            + words(e)
-            + words(self.mont_one)
-            + [e.bit_length()]
-        )
+        out = words(self.modulus) + [pow(-self.modulus, -1, 1 << 32)] + words(self.mont_one)
         return np.asarray(out, dtype=np.uint32)
 
     def const(self, which: str, device) -> torch.Tensor:
@@ -222,8 +208,37 @@ def pow_const(ctx: ModCtx, x: torch.Tensor, exp_bits) -> torch.Tensor:
 
 
 def inv_mod(ctx: ModCtx, x: torch.Tensor) -> torch.Tensor:
-    """Plain Fermat inversion x^(N-2) (Montgomery in/out); 0 maps to 0."""
-    return pow_const(ctx, x, ctx.inv_exp_bits)
+    """Plain batch inversion (Montgomery in/out); 0 maps to 0.
+
+    Montgomery's trick over the whole batch, as kernel 2 does it over each
+    block: zeros enter as one, a product tree goes up level by level (the
+    leaves padded with one to a power of two), the root is inverted, and
+    its inverse goes back down with two products a node.  The root is one
+    element, inverted exactly with a host integer (`pow(a, -1, N)`); a
+    Fermat chain of ~380 products on one element costs about a second of
+    torch calls on the CPU."""
+    L = ctx.L
+    flat = x.reshape(-1, L)
+    n = flat.shape[0]
+    if n == 0:
+        return torch.empty_like(x)
+    zero = (flat == 0).all(-1, keepdim=True)
+    one = ctx.const("one", x.device)
+    level = torch.where(zero, one, flat.to(LIMB_DTYPE))
+    size = 1 << (n - 1).bit_length()
+    if size > n:
+        level = torch.cat([level, one.expand(size - n, L)])
+    levels = [level]
+    while level.shape[0] > 1:
+        level = mont_mul(ctx, level[0::2], level[1::2])
+        levels.append(level)
+    root = limbs_to_int(level[0].cpu().numpy())  # a R mod N
+    inv_root = pow(root, -1, ctx.modulus) * ctx.r2 % ctx.modulus  # (a R)^-1 R^2 = a^-1 R
+    inv = torch.as_tensor(int_to_limbs(inv_root, L).astype(np.int32), device=x.device)[None]
+    for level in reversed(levels[:-1]):
+        left, right = level[0::2], level[1::2]
+        inv = torch.stack([mont_mul(ctx, inv, right), mont_mul(ctx, inv, left)], dim=1).reshape(-1, L)
+    return torch.where(zero, torch.zeros_like(flat, dtype=LIMB_DTYPE), inv[:n]).reshape(x.shape)
 
 
 # --------------------------------------------------------------------------
@@ -268,7 +283,8 @@ def binop_kernel(kind: str, ctx: ModCtx, a: torch.Tensor, b: torch.Tensor) -> to
 
 
 def inv_kernel(ctx: ModCtx, x: torch.Tensor) -> torch.Tensor:
-    """Kernel 2: elementwise Fermat inversion of a [.., L] CUDA tensor."""
+    """Kernel 2: batch inversion (0 -> 0) of a [.., L] CUDA tensor, one
+    launch."""
     x = _kernel_operand(x, x.shape[:-1])
     cuda.require_cuda_field_tensor(x, "inv_kernel x", ctx.L)
     out = torch.empty_like(x)

@@ -59,8 +59,8 @@ _SIGNATURES = {
     "marlin_field_binop": [_I, _I, _P, _P, _P, _LL, _P, _P],
     # (nl, x, out, n, params, stream)
     "marlin_field_inv": [_I, _P, _P, _LL, _P, _P],
-    # (x, total, log_b, twiddles, params, stream)
-    "marlin_ntt_block_stages": [_P, _LL, _I, _P, _P, _P],
+    # (x, y, total, log_n, log_b, twiddles, scale, params, stream)
+    "marlin_ntt_block_stages": [_P, _P, _LL, _I, _I, _P, _P, _P, _P],
     # (x, total, stage, twiddles, params, stream)
     "marlin_ntt_cross_stage": [_P, _LL, _I, _P, _P, _P],
     # (x1, y1, z1, x2, y2, z2, ox, oy, oz, n, stream)

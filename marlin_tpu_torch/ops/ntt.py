@@ -4,12 +4,16 @@ Port of `marlin_tpu/ops/ntt.py` (radix-2 path): decimation-in-time on
 bit-reversed input, log2(n) butterfly stages, inverse scaled by n^-1.  The
 output matches the JAX package limb for limb; only the staging differs.
 
-On a CUDA tensor the stages run as kernel 3 (csrc/ntt.cu): the first
-`BLOCK_LOG2` stages in one shared-memory launch per B-element block, then
-one global launch per remaining stage; the n^-1 scaling goes through
-kernel 1.  On a CPU tensor the plain twins of those two kernels run
-(`block_stages_plain`, `cross_stage_plain`) — the same stage math in plain
-PyTorch.  Mixed-radix domains are not ported yet.
+On a CUDA tensor the stages run as kernel 3 (csrc/ntt.cu): one launch of
+(a) gathers the input in bit-reversed order, scales it by n^-1 for an
+inverse transform and runs the first `BLOCK_LOG2` stages in shared memory,
+one block per B-element block of the output; then (b) runs one global
+launch per remaining stage.  A transform is therefore 1 + max(0, log2(n) -
+10) launches and nothing else: no permuted copy and no separate n^-1
+product.
+On a CPU tensor the plain twins of those two kernels run
+(`block_stages_plain`, `cross_stage_plain`) — the same gather, scale and
+stage math in plain PyTorch.  Mixed-radix domains are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ from .limbs import ints_to_limbs
 
 R = P.R_MODULUS
 
-# in-block stages of kernel 3(a): B = 2^10 Fr elements = 32 KB of shared memory
+# in-block stages of kernel 3(a): B = 2^10 Fr elements and B - 1 twiddles,
+# 64 KB of shared memory
 BLOCK_LOG2 = 10
 
 
@@ -62,11 +67,15 @@ def _plan(n: int, inverse: bool):
 
 @functools.lru_cache(maxsize=None)
 def _plan_tensors(n: int, inverse: bool, device: torch.device):
-    rev, tw = _plan(n, inverse)
-    tw_t = torch.as_tensor(tw.astype(np.int32), device=device)
-    if tw_t.shape[0] == 0:  # n = 1: keep a valid pointer for the kernels
-        tw_t = torch.zeros((1, fr.L), dtype=torch.int32, device=device)
-    return torch.as_tensor(rev, device=device), tw_t
+    """(twiddle table [n-1, 16] int32, n^-1 [16] for an inverse transform
+    or None) on `device`."""
+    tw = torch.as_tensor(_plan(n, inverse)[1].astype(np.int32), device=device)
+    return tw, fr.from_int(pow(n, -1, R), device) if inverse else None
+
+
+@functools.lru_cache(maxsize=None)
+def _rev_tensor(n: int, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(_plan(n, False)[0], device=device)
 
 
 # --------------------------------------------------------------------------
@@ -83,8 +92,16 @@ def _stage_plain(x: torch.Tensor, tw: torch.Tensor, s: int) -> torch.Tensor:
     return out.reshape(total, fr.L)
 
 
-def block_stages_plain(x: torch.Tensor, tw: torch.Tensor, log_b: int) -> torch.Tensor:
-    """Stages 0..log_b-1 of every aligned 2^log_b block of x ([total, 16])."""
+def block_stages_plain(
+    x: torch.Tensor, tw: torch.Tensor, log_b: int, log_n: int, scale: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Stages 0..log_b-1 of every aligned 2^log_b block of x ([total, 16])
+    after the bit-reversal of each 2^log_n transform and the product by
+    `scale` (if given); a new tensor."""
+    n = 1 << log_n
+    x = x.reshape(-1, n, fr.L).index_select(1, _rev_tensor(n, x.device)).reshape(-1, fr.L)
+    if scale is not None:
+        x = bi.mont_mul(fr.CTX, x, scale)
     for s in range(log_b):
         x = _stage_plain(x, tw, s)
     return x
@@ -96,7 +113,7 @@ def cross_stage_plain(x: torch.Tensor, tw: torch.Tensor, s: int) -> torch.Tensor
 
 
 # --------------------------------------------------------------------------
-# kernel wrappers (csrc/ntt.cu); both update x in place
+# kernel wrappers (csrc/ntt.cu): (a) writes a new tensor, (b) updates x in place
 
 
 def _check_stage_args(x: torch.Tensor, tw: torch.Tensor) -> None:
@@ -106,18 +123,25 @@ def _check_stage_args(x: torch.Tensor, tw: torch.Tensor) -> None:
         raise ValueError("ntt kernels take [total, 16] x and twiddles on one device")
 
 
-def block_stages_kernel(x: torch.Tensor, tw: torch.Tensor, log_b: int) -> torch.Tensor:
-    """Kernel 3(a): stages 0..log_b-1 (log_b <= 10) of every aligned
-    2^log_b block of x, in place."""
+def block_stages_kernel(
+    x: torch.Tensor, tw: torch.Tensor, log_b: int, log_n: int, scale: torch.Tensor | None = None
+) -> torch.Tensor:
+    """Kernel 3(a): `block_stages_plain` (log_b <= 10) in one launch, into
+    a new tensor."""
+    x = bi._kernel_operand(x, x.shape[:-1])
     _check_stage_args(x, tw)
+    if scale is not None:
+        cuda.require_cuda_field_tensor(scale, "ntt scale", fr.L)
+    y = torch.empty_like(x)
     params = fr.CTX.kernel_params
     err = cuda.lib().marlin_ntt_block_stages(
-        x.data_ptr(), x.shape[0], log_b, tw.data_ptr(),
+        x.data_ptr(), y.data_ptr(), x.shape[0], log_n, log_b, tw.data_ptr(),
+        None if scale is None else scale.data_ptr(),
         params.ctypes.data_as(ctypes.c_void_p), cuda.stream_handle(x),
     )
     cuda.LAUNCHES["ntt_block_stages"] += 1
     cuda.check(err, "ntt_block_stages")
-    return x
+    return y
 
 
 def cross_stage_kernel(x: torch.Tensor, tw: torch.Tensor, s: int) -> torch.Tensor:
@@ -150,25 +174,21 @@ def transform(
         raise NotImplementedError(f"mixed-radix NTT (size {n}) is not yet ported")
     if plain is None:
         plain = not x.is_cuda
+    if n == 1:  # no stage, and n^-1 = 1
+        return x.clone()
     log_n = n.bit_length() - 1
-    rev, tw = _plan_tensors(n, inverse, x.device)
-    batch_shape = x.shape[:-2]
-    y = x.index_select(-2, rev).reshape(-1, fr.L).contiguous()
+    tw, scale = _plan_tensors(n, inverse, x.device)
+    flat = x.reshape(-1, fr.L)
     log_b = min(log_n, block_log2)
     if plain:
-        y = block_stages_plain(y, tw, log_b)
+        y = block_stages_plain(flat, tw, log_b, log_n, scale)
         for s in range(log_b, log_n):
             y = cross_stage_plain(y, tw, s)
     else:
-        if log_b > 0:
-            block_stages_kernel(y, tw, log_b)
+        y = block_stages_kernel(flat, tw, log_b, log_n, scale)
         for s in range(log_b, log_n):
             cross_stage_kernel(y, tw, s)
-    y = y.reshape(*batch_shape, n, fr.L)
-    if inverse:
-        n_inv = fr.from_int(pow(n, -1, R), x.device)
-        y = bi.mont_mul(fr.CTX, y, n_inv) if plain else bi.binop_kernel("mul", fr.CTX, y, n_inv)
-    return y
+    return y.reshape(x.shape)
 
 
 def _pad_for(coeffs: torch.Tensor, n: int) -> torch.Tensor:

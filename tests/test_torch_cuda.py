@@ -56,11 +56,41 @@ def test_mul_kernel_takes_an_operand_below_r(dev, field):
     assert torch.equal(bi.binop_kernel("mul", ctx, b, raw), bi.mont_mul(ctx, b, raw))
 
 
+# kernel 2's cases: one element, a few, one block (128 threads) and more;
+# 2^18 + 3 makes every thread take several elements (stride blockDim)
+INV_SIZES = [1, 2, 7, 256, 4099, (1 << 18) + 3]
+
+
+def _with_zeros(x, n):
+    """Zeros at the first and last element of a thread's run, of a block
+    (128 elements at one a thread) and of the whole batch."""
+    for i in (0, 127, 128, 255, 4096, n - 1):
+        if i < n:
+            x[i] = 0
+    return x
+
+
 @pytest.mark.parametrize("field", ["fr", "fq"])
-def test_inv_kernel_matches_plain(dev, field):
+@pytest.mark.parametrize("n", INV_SIZES)
+def test_inv_kernel_matches_plain(dev, field, n):
     ctx = {"fr": fr.CTX, "fq": fq.CTX}[field]
-    x = _elements(ctx, 300, 3, dev)
-    assert torch.equal(bi.inv_kernel(ctx, x), bi.inv_mod(ctx, x))
+    x = _with_zeros(_elements(ctx, n, 3, dev), n)
+    cuda.reset_launches()
+    got = bi.inv_kernel(ctx, x)
+    assert cuda.LAUNCHES["field_inv"] == 1
+    assert torch.equal(got, bi.inv_mod(ctx, x))
+    zero = (x == 0).all(-1)
+    assert bool((got[zero] == 0).all())
+    one = torch.as_tensor(ctx.one_limbs.astype(np.int32), device=dev)
+    assert bool((bi.binop_kernel("mul", ctx, x, got)[~zero] == one).all())
+
+
+@pytest.mark.parametrize("field", ["fr", "fq"])
+def test_inv_kernel_maps_an_all_zero_batch_to_zero(dev, field):
+    ctx = {"fr": fr.CTX, "fq": fq.CTX}[field]
+    for n in (1, 300):
+        x = torch.zeros((n, ctx.L), dtype=torch.int32, device=dev)
+        assert bool((bi.inv_kernel(ctx, x) == 0).all())
 
 
 @pytest.mark.parametrize("shape", [(2,), (1 << 10,), (1 << 13,), (3, 1 << 11)])
@@ -68,6 +98,33 @@ def test_ntt_kernels_match_plain_twins(dev, shape):
     x = _elements(fr.CTX, int(np.prod(shape)), 4, dev).reshape(*shape, fr.L)
     for inverse in (False, True):
         assert torch.equal(ntt.transform(x, inverse), ntt.transform(x, inverse, plain=True))
+
+
+@pytest.mark.parametrize("log_n", range(1, 13))
+def test_ntt_kernels_match_plain_at_each_block_size(dev, log_n):
+    """Batched [3, 2^log_n] transforms, forward and inverse, at every
+    in-block size the kernel takes; each is one block-stage launch plus one
+    per wider stage, and no field product (the n^-1 rides in the gather)."""
+    n = 1 << log_n
+    x = _elements(fr.CTX, 3 * n, 30 + log_n, dev).reshape(3, n, fr.L)
+    for log_b in range(1, min(log_n, ntt.BLOCK_LOG2) + 1):
+        for inverse in (False, True):
+            cuda.reset_launches()
+            got = ntt.transform(x, inverse, block_log2=log_b)
+            assert cuda.LAUNCHES["ntt_block_stages"] == 1
+            assert cuda.LAUNCHES["ntt_cross_stage"] == log_n - log_b
+            assert cuda.LAUNCHES["field_binop"] == 0
+            assert torch.equal(got, ntt.transform(x, inverse, plain=True, block_log2=log_b))
+
+
+def test_ntt_block_stage_kernel_matches_plain_with_scale(dev):
+    n = 1 << 12
+    x = _elements(fr.CTX, 2 * n, 40, dev)
+    tw, scale = ntt._plan_tensors(n, True, dev)
+    for log_b in (1, 5, 10):
+        for sc in (None, scale):
+            assert torch.equal(ntt.block_stages_kernel(x, tw, log_b, 12, sc),
+                               ntt.block_stages_plain(x, tw, log_b, 12, sc))
 
 
 def test_cuda_routing_counts_launches(dev):

@@ -220,4 +220,5 @@ def test_mont_header_moduli_match_the_field_contexts(traits, ctx):
     assert 32 * nl == 16 * ctx.L and bits == ctx.modulus.bit_length()
     assert limbs("n") == ctx.modulus
     assert limbs("one") == ctx.mont_one
+    assert limbs("r3") == pow(ctx.R, 3, ctx.modulus)
     assert np0 == (-pow(ctx.modulus, -1, 1 << 32)) % (1 << 32)

@@ -46,7 +46,10 @@ _KERNELS = {
     "bucket_fold (fast)": "fold_kernelILb0E",
     "bucket_fold (exact)": "fold_kernelILb1E",
     "combine_windows": "combine_kernel",
+    "field_inv (fr)": ("inv_kernelI8FrTraitsE", "inv_kernelILi8EE"),
     "field_inv (fq)": ("inv_kernelI8FqTraitsE", "inv_kernelILi12EE"),
+    "ntt_block_stages": "block_stages_kernel",
+    "ntt_cross_stage": "cross_stage_kernel",
 }
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
 _NOT_MUL = (".MOV", ".SHL", ".IADD")

@@ -10,7 +10,13 @@ Builds the bench circuit (`DummyCircuit`, 2^log2 constraints, SRS sized by
   synchronizes the device, so a phase's seconds include its kernels);
 * one prove under `torch.profiler` (CPU and CUDA activity): device time by
   kernel name, their sum, and the device's busy share of the wall time;
-* each kernel alone at the main path's largest shape (2^16 Fr elements;
+* one more prove under `torch.profiler`, with the wrappers of the inversion
+  and the NTT stage kernels noting each launch's shape: the device time of
+  each of their launches in the prove, by kernel and shape (the profiler's
+  kernel events matched to the launches in stream order);
+* each kernel alone at the main path's largest shape (2^16 Fr elements,
+  and for the inversion also one Fr element, one Fq element and the table
+  build's 25 x 2^16 Fq elements;
   2^16 points for the group law, and the bucket scans' 1,539; the prove's
   largest fold, round 3's three jobs of 2^16 - 1 scalars, for the bucket
   fold, and the classic route's [16384, 128] windows; 26 window sums at
@@ -72,11 +78,74 @@ def _profiled_prove(torch, Marlin, pk, circ, rng) -> dict:
     }
 
 
+# kernel -> a substring of its symbol in the profiler's device events
+_SHAPED = {"field_inv": "batch_inv_kernel", "ntt_block_stages": "block_stages_kernel",
+           "ntt_cross_stage": "cross_stage_kernel"}
+
+
+def _prove_launches_by_shape(torch, Marlin, pk, circ, rng) -> list:
+    """Device ms of each launch of the inversion and NTT stage kernels in one
+    prove, by kernel and shape: the wrappers note each launch's shape in
+    order, and the profiler's kernel events of each kernel, in stream order,
+    give their device times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from marlin_tpu_torch.ops import bigint as bi
+    from marlin_tpu_torch.ops import ntt
+
+    noted = {k: [] for k in _SHAPED}
+
+    def noting(kernel, fn, shape_of):
+        def wrapper(*args, **kwargs):
+            noted[kernel].append(shape_of(*args, **kwargs))
+            return fn(*args, **kwargs)
+        return wrapper
+
+    originals = (bi.inv_kernel, ntt.block_stages_kernel, ntt.cross_stage_kernel)
+    bi.inv_kernel = noting("field_inv", bi.inv_kernel,
+                           lambda ctx, x: f"{ctx.name} [{x.numel() // ctx.L}]")
+    ntt.block_stages_kernel = noting(
+        "ntt_block_stages", ntt.block_stages_kernel,
+        lambda x, tw, log_b, log_n, scale=None:
+            f"[{x.shape[0] >> log_n}, 2^{log_n}] {'inverse' if scale is not None else 'forward'}")
+    ntt.cross_stage_kernel = noting("ntt_cross_stage", ntt.cross_stage_kernel,
+                                    lambda x, tw, s: f"[{x.shape[0]}] stage {s}")
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof, contextlib.redirect_stdout(io.StringIO()):
+            Marlin.prove(pk, circ, rng, device="cuda")
+            torch.cuda.synchronize()
+    finally:
+        bi.inv_kernel, ntt.block_stages_kernel, ntt.cross_stage_kernel = originals
+    device = {k: [] for k in _SHAPED}
+    for ev in sorted(prof.events(), key=lambda e: e.time_range.start):
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
+        for k, sym in _SHAPED.items():
+            if sym in ev.name:
+                device[k].append((ev.time_range.end - ev.time_range.start) / 1e3)
+    out = []
+    for k in _SHAPED:
+        if len(device[k]) != len(noted[k]):
+            out.append({"kernel": k, "error": f"{len(noted[k])} launches, {len(device[k])} kernel events"})
+            continue
+        by_shape: dict = {}
+        for shape, ms in zip(noted[k], device[k]):
+            by_shape.setdefault(shape, []).append(ms)
+        out.extend({"kernel": k, "shape": shape, "launches": len(v), "device_ms": v,
+                    "device_ms_total": sum(v)} for shape, v in by_shape.items())
+    return out
+
+
 # kernel label -> substrings of its symbol in the profiler's device events
 # (either template form the kernels have had: <FrTraits, 0> or <8, 0>)
 _KERNEL_SYMBOLS = {
     "field_binop (fr mul)": ("binop_kernel<FrTraits, 0>", "binop_kernel<8, 0>"),
     "field_inv (fr)": ("inv_kernel<FrTraits>", "inv_kernel<8>"),
+    "field_inv (fr, 1 element)": ("inv_kernel<FrTraits>", "inv_kernel<8>"),
+    "field_inv (fq, 1 element)": ("inv_kernel<FqTraits>", "inv_kernel<12>"),
+    "field_inv (fq, 25 x 2^16)": ("inv_kernel<FqTraits>", "inv_kernel<12>"),
     "ntt_block_stages": ("block_stages_kernel",),
     "ntt_cross_stage": ("cross_stage_kernel",),
     "g1_add (2^16 points)": ("::add_kernel",),
@@ -107,8 +176,9 @@ def _kernel_device_times(torch, reps: int = 20) -> dict:
     dev = torch.device("cuda")
     a = torch.as_tensor(random_elements(np, rng, fr.CTX, n), device=dev)
     b = torch.as_tensor(random_elements(np, rng, fr.CTX, n), device=dev)
-    _rev, tw = ntt._plan_tensors(n, False, dev)
+    tw, _ = ntt._plan_tensors(n, False, dev)
     x = a.clone()
+    fq_table = torch.as_tensor(random_elements(np, rng, fq.CTX, 25 * n), device=dev)
     # the group law's cost does not depend on the operands being points
     p, q = ([torch.as_tensor(random_elements(np, rng, fq.CTX, n), device=dev) for _ in range(3)]
             for _ in range(2))
@@ -132,7 +202,10 @@ def _kernel_device_times(torch, reps: int = 20) -> dict:
     calls = {
         "field_binop (fr mul)": lambda: bi.binop_kernel("mul", fr.CTX, a, b),
         "field_inv (fr)": lambda: bi.inv_kernel(fr.CTX, a),
-        "ntt_block_stages": lambda: ntt.block_stages_kernel(x, tw, ntt.BLOCK_LOG2),
+        "field_inv (fr, 1 element)": lambda: bi.inv_kernel(fr.CTX, a[5:6]),
+        "field_inv (fq, 1 element)": lambda: bi.inv_kernel(fq.CTX, fq_table[5:6]),
+        "field_inv (fq, 25 x 2^16)": lambda: bi.inv_kernel(fq.CTX, fq_table),
+        "ntt_block_stages": lambda: ntt.block_stages_kernel(x, tw, ntt.BLOCK_LOG2, 16),
         "ntt_cross_stage": lambda: ntt.cross_stage_kernel(x, tw, 15),
         "g1_add (2^16 points)": lambda: curve.add_kernel(p, q),
         "g1_add (1539 points, the scans)": lambda: curve.add_kernel(*scans),
@@ -216,6 +289,7 @@ def main() -> int:
 
     try:
         rec.update(_profiled_prove(torch, Marlin, pk, circ, rng))
+        rec["prove_launches_by_shape"] = _prove_launches_by_shape(torch, Marlin, pk, circ, rng)
         rec["kernel_device_times_2_16"] = _kernel_device_times(torch)
     except Exception as e:  # CUPTI tracing may be unavailable on the host
         rec["profiler_error"] = f"{type(e).__name__}: {e}"
