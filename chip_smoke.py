@@ -12,8 +12,11 @@ Phases, each printing one line of JSON:
    identity points, P + P, P + (-P); the fold at the table and the classic
    shape, each with its own sub-row count, fast and exact, and a lane that
    meets P == Q; the ladder at the prove's 2 points and at 512, with
-   identity points and scalars 0, 1 and r - 1; identity window sums, and
-   128 of them; the batch inversion at Fr 2^16, 2^14 and one element and
+   identity points and scalars 0, 1 and r - 1, and the table route's
+   shared ladder over c-bit digits at the prove's shape (round 1's two
+   one-point tails, c = 10, W = 26) against its plain run and the host
+   MSM; identity window sums, and 128 of them; the batch inversion at
+   Fr 2^16, 2^14 and one element and
    at the table build's 25 x 2^16 Fq, zeros at a thread's and a block's
    edges; the NTT at each of the prove's transform shapes, whole
    transforms and each stage kernel, forward and inverse); each timed with
@@ -49,12 +52,16 @@ Phases, each printing one line of JSON:
    card (equal proof bytes), then at 2^14 on the card: the proof verifies
    at 759 B, with no host MSM call.
 
-The build phase also records the curve, inversion and NTT block kernels'
-registers, stack frame and spills (`ptxas -v`, which must show no spill),
-and the integer multiplies of
-one Fq and one Fr product in this build's SASS (tools/sass_count.py), which
-the operation bounds use.  Then the kernel table, the card's name and power
-limit, and, as the last line, `{"ok": true, "device": {...}}`.  Any failure
+The build phase also records the curve, chain, inversion and NTT block
+kernels' registers, stack frame and spills (`ptxas -v`, which must show no
+spill for a kernel the path runs), the SASS counts of each kernel and the
+integer multiplies of one Fq and one Fr product (tools/sass_count.py), and
+measures the card's multiply rate and the latency of one dependent product
+and of one doubling step (tools/imad_rate.py): the operation bounds divide
+by the card's peak multiply rate in the same unit, beside which the
+measured rate is recorded as the share reached, and the ladder's and the
+combine's chain floors multiply their dependent levels by that latency.  Then the kernel table, the card's
+name and power limit, and, as the last line, `{"ok": true, "device": {...}}`.  Any failure
 exits nonzero before that line.  Needs one CUDA device and the repository beside this script;
 imports nothing of JAX.  `--out` also writes every phase's record to PATH.
 """
@@ -75,16 +82,23 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # Peaks used for bounds.  HBM bandwidth: 3.35 TB/s (NVIDIA's H100 SXM data
-# sheet).  Operations: the kernels' work is 32-bit integer multiply-adds,
-# which a compute-capability-9.0 SM completes at 64 a clock (CUDA C++
-# Programming Guide, table "Throughput of Native Arithmetic Instructions":
-# 32-bit integer multiply, multiply-add, extended-precision multiply-add);
-# times the card's SMs and its maximum SM clock as nvidia-smi reports it
-# (set in main).  The multiplies of one product come from this build's SASS.
+# sheet).  Operations: the kernels' work is the Montgomery product's carry
+# chains of 32-bit integer multiply-adds.  The CUDA C++ Programming Guide
+# (table "Throughput of Native Arithmetic Instructions", compute capability
+# 9.0) gives 64 extended-precision multiply-adds a clock an SM, counting
+# PTX's mad.lo.cc and madc.hi.cc apart; ptxas fuses each such pair into one
+# IMAD.WIDE.U32, the unit in which this build's SASS counts the multiplies
+# of one product.  So the peak is 32 IMAD.WIDE a clock an SM, times the SMs
+# and the maximum SM clock.  The rate reached with every SM busy is measured
+# in the build phase (tools/imad_rate.py) and recorded beside it.
 PEAK_BYTES_PER_S = 3.35e12
 IMAD_PER_CLOCK_PER_SM = 64
 PEAK_OPS_PER_S = None
 MULS_PER_PRODUCT: dict = {}  # "fr" / "fq" -> integer multiplies in one Montgomery product
+# the latency of one dependent Fq product on one thread, microseconds (measured)
+FQ_PRODUCT_US = None
+# dependent product levels of one step of the chain kernels (csrc/chain.cu)
+DOUBLING_LEVELS, ADD_LEVELS = 3, 5
 
 # the main path's shapes: |H| = 2^14 constraints, |K| = the mul domain = 2^16
 MAIN_LOG2 = 14
@@ -102,7 +116,8 @@ NTT_PROVE_SHAPES = ((1 << 14,), (2, 1 << 14), (3, 1 << 14), (1 << 16,), (2, 1 <<
 # fold: round 3's three jobs of 2^16 - 1 scalars (offsets 0, 1, 0)
 CURVE_N = 1 << 16
 SCAN_N = 3 * 513  # the Hillis scans' points: round 3's 3 jobs x 513 buckets
-LADDER_N, LADDER_WIDE_N = 2, 512  # the prove's shared ladder (round 1's two tails), and wider
+LADDER_N, LADDER_WIDE_N = 2, 512  # the ladder at round 1's two tails over 255 bits, and wider
+MAIN_HEAD = 1 << MAIN_LOG2  # round 1's jobs hold 2^14 + 1 points: a one-point tail past 2^14
 FOLD_JOBS = ((0, (1 << 16) - 1), (1, (1 << 16) - 1), (0, (1 << 16) - 1))
 MEDIUM_LOG2 = 11
 REPEATED_N = 1 << 14  # points of the msm phase's repeated-scalar job
@@ -167,14 +182,15 @@ def product_ops(field: str, products: float) -> float:
 
 
 def integer_peak(torch) -> dict:
-    """The card's 32-bit integer multiply rate: 64 a clock on each SM at its
-    maximum SM clock (nvidia-smi clocks.max.sm)."""
+    """The peak rate of fused IMAD.WIDE multiplies: IMAD_PER_CLOCK_PER_SM / 2
+    a clock on each SM at its maximum SM clock (nvidia-smi clocks.max.sm)."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
                          capture_output=True, text=True, timeout=60)
     mhz = float(out.stdout.strip().splitlines()[0])
-    return {"sms": sms, "max_sm_clock_mhz": mhz, "imad_per_clock_per_sm": IMAD_PER_CLOCK_PER_SM,
-            "ops_per_s": IMAD_PER_CLOCK_PER_SM * sms * mhz * 1e6}
+    wide = IMAD_PER_CLOCK_PER_SM / 2
+    return {"sms": sms, "max_sm_clock_mhz": mhz, "ptx_multiply_adds_per_clock_per_sm": IMAD_PER_CLOCK_PER_SM,
+            "imad_wide_per_clock_per_sm": wide, "ops_per_s": wide * sms * mhz * 1e6}
 
 
 def ptxas_report(path: str) -> dict:
@@ -198,20 +214,26 @@ def ptxas_report(path: str) -> dict:
     return out
 
 
-# the kernels whose ptxas report must show no spill: source, symbol fragment
-NO_SPILL = {"g1_add": ("curve.cu", "add_kernel"), "g1_double": ("curve.cu", "double_kernel"),
-            "g1_scalar_mul": ("curve.cu", "scalar_mul_kernel"),
-            "bucket_fold": ("curve.cu", "fold_kernelILb0E"), "bucket_fold_exact": ("curve.cu", "fold_kernelILb1E"),
-            "field_inv_fr": ("field.cu", "batch_inv_kernelI8FrTraitsE"),
-            "field_inv_fq": ("field.cu", "batch_inv_kernelI8FqTraitsE"),
-            "ntt_block_stages": ("ntt.cu", "block_stages_kernel")}
+# each kernel's ptxas report: source, symbol fragment.  A kernel the main
+# path runs must show no spill.
+PTXAS_KERNELS = {
+    "g1_add": ("curve.cu", "add_kernel"), "g1_double": ("curve.cu", "double_kernel"),
+    "bucket_fold": ("curve.cu", "fold_kernelILb0E"), "bucket_fold_exact": ("curve.cu", "fold_kernelILb1E"),
+    "g1_scalar_mul": ("chain.cu", "scalar_mul_kernel"), "combine_windows": ("chain.cu", "combine_kernel"),
+    "field_inv_fr": ("field.cu", "batch_inv_kernelI8FrTraitsE"),
+    "field_inv_fq": ("field.cu", "batch_inv_kernelI8FqTraitsE"),
+    "ntt_block_stages": ("ntt.cu", "block_stages_kernel"),
+    "imad_rate": ("imad.cu", "imad_rate_kernelILi8E"),
+}
 
 
 def phase_build(torch) -> dict:
-    """Build the kernels; record the curve, inversion and NTT block kernels'
-    registers and spills and the multiplies of one product."""
-    global PEAK_OPS_PER_S
+    """Build the kernels; record each kernel's registers and spills, its SASS
+    counts and the multiplies of one product; measure the multiply rate and
+    the chain latencies."""
+    global PEAK_OPS_PER_S, FQ_PRODUCT_US
     sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import imad_rate
     import sass_count
 
     from marlin_tpu_torch.ops import cuda, curve
@@ -219,9 +241,9 @@ def phase_build(torch) -> dict:
     secs = cuda.build()
     cuda.lib()
     reports = {src: ptxas_report(os.path.join(cuda._BUILD_DIR, src + ".ptxas.txt"))
-               for src in ("curve.cu", "field.cu", "ntt.cu")}
+               for src in {s for s, _ in PTXAS_KERNELS.values()}}
     ptxas = {}
-    for label, (src, frag) in NO_SPILL.items():
+    for label, (src, frag) in PTXAS_KERNELS.items():
         hits = [v for k, v in reports[src].items() if frag in k and "registers" in v]
         require(len(hits) == 1, f"ptxas: {len(hits)} reports for {label}")
         ptxas[label] = hits[0]
@@ -231,11 +253,20 @@ def phase_build(torch) -> dict:
     for field in ("fr", "fq"):
         MULS_PER_PRODUCT[field] = sass["product"][field]["multiplies"]
     peak = integer_peak(torch)
+    measured = imad_rate.measure(torch)
     PEAK_OPS_PER_S = peak["ops_per_s"]
+    FQ_PRODUCT_US = measured["latency"]["fq_product"]["us_per_product"]
     return {"seconds": secs, "ptxas": ptxas, "runtime": curve.kernel_info(),
+            "kernel_sass": sass["kernels"],
             "product_sass": {f: {k: v for k, v in r.items() if k != "binop_mul_kernel"}
                              for f, r in sass["product"].items()},
-            "integer_peak": peak}
+            "integer_peak": peak, "imad": measured, "ops_per_s_used": PEAK_OPS_PER_S,
+            "imad_share_of_peak": measured["rate"]["multiplies_per_s"] / PEAK_OPS_PER_S}
+
+
+def chain_floor_ms(levels: float) -> float:
+    """Dependent product levels times one dependent Fq product's latency."""
+    return levels * FQ_PRODUCT_US / 1e3
 
 
 FQ_BYTES = 96  # one Fq element in the int32 limb layout (24 words)
@@ -539,11 +570,10 @@ def phase_curve_kernels(torch, np) -> dict:
         "plain_ms": time_ms(torch, lambda: curve.double_plain(S), reps=3, warmup=1),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     }
-    results["g1_scalar_mul"] = scalar_mul_row(torch, np, pts, S)
-
     # kernel 5: the table of these points at the 2^14 prove's c, its largest fold
     c = msm._fixed_c(n)
     table = msm.build_fixed_table(cd.from_affine_ints(pts, dev), c)
+    results["g1_scalar_mul"] = scalar_mul_row(torch, np, pts, S, table)
     W = table.num_windows
     rows = [0, n + 7, (W - 1) * n + 9]
     x, y = curve.unpack_xy_rows(table.xy[rows])
@@ -603,10 +633,11 @@ def phase_curve_kernels(torch, np) -> dict:
     return results
 
 
-def scalar_mul_row(torch, np, pts, jac) -> dict:
-    """Kernel 4's ladder at the 2^14 prove's shape (the two one-scalar tails
-    of round 1: 2 points, 255 bits) and at 512 points with identity points,
-    a Jacobian point and the scalars 0, 1 and r - 1."""
+def scalar_mul_row(torch, np, pts, jac, table) -> dict:
+    """Kernel 4's ladder at the 2^14 prove's shape before the digit route
+    (2 points, 255 bits) and at 512 points with identity points, a Jacobian
+    point and the scalars 0, 1 and r - 1; then the table route's shared
+    ladder over c-bit digits."""
     from marlin_tpu_torch.fields import bls12_381 as P
     from marlin_tpu_torch.fields import host_curve as hc
     from marlin_tpu_torch.ops import curve
@@ -636,28 +667,92 @@ def scalar_mul_row(torch, np, pts, jac) -> dict:
     out = {}
     for label, n in (("ladder", LADDER_N), ("wide", LADDER_WIDE_N)):
         P_, scal, affs, ks = case(n, 300 + n)
+        plain = curve.scalar_mul_plain(P_, scal, P.FR_BITS)
         got = curve.scalar_mul_kernel(P_, scal, P.FR_BITS)
-        e = err(got, curve.scalar_mul_plain(P_, scal, P.FR_BITS))
         torch.cuda.synchronize()
         check = min(n, 12)
         require(cd.to_affine_ints(tuple(t[:check] for t in got))
                 == [hc.g1_mul(p, k) if p else None for p, k in zip(affs[:check], ks[:check])],
                 f"g1_scalar_mul: affine multiples differ from the host's ({label})")
+        rec = {"shape": f"[{n}] points x {P.FR_BITS} bits", "max_abs_err": err(got, plain),
+               "ms": time_ms(torch, lambda: curve.scalar_mul_kernel(P_, scal, P.FR_BITS), reps=5)}
         adds = sum(bin(k).count("1") for k in ks)
         b_ms, b_by = bound(n * (6 * FQ_BYTES + 64), product_ops("fq", n * P.FR_BITS * 7 + adds * 16))
-        out[label] = {
-            "shape": f"[{n}] points x {P.FR_BITS} bits", "max_abs_err": e,
-            "ms": time_ms(torch, lambda: curve.scalar_mul_kernel(P_, scal, P.FR_BITS), reps=5),
-            "plain_ms": time_ms(torch, lambda: curve.scalar_mul_plain(P_, scal, P.FR_BITS), reps=1, warmup=0),
-            "bound_ms": b_ms, "bound_by": b_by,
-        }
+        most = max(bin(k).count("1") for k in ks)
+        rec.update(
+            bound_ms=b_ms, bound_by=b_by,
+            chain_floor_ms=chain_floor_ms(P.FR_BITS * DOUBLING_LEVELS + most * ADD_LEVELS),
+            plain_ms=time_ms(torch, lambda: curve.scalar_mul_plain(P_, scal, P.FR_BITS), reps=1, warmup=0),
+        )
+        out[label] = rec
+    digits = digit_route_row(torch, np, pts, table)
     row = out["ladder"]
     return {
-        "route": "cuda", "source": "marlin_tpu_torch/csrc/curve.cu",
+        "route": "cuda", "source": "marlin_tpu_torch/csrc/chain.cu",
         "replaces": "marlin_tpu/ops/pallas/curve.py:201",
-        "max_abs_err": max(row["max_abs_err"], out["wide"]["max_abs_err"]), "shape": row["shape"],
-        "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"], "library_ms": None, "wide": out["wide"],
+        "max_abs_err": max(row["max_abs_err"], out["wide"]["max_abs_err"], digits["max_abs_err"]),
+        "shape": row["shape"], "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": None,
+        "chain_floor_ms": row["chain_floor_ms"], "variants": {"ladder": row, "wide": out["wide"]},
+        "digit_route": digits,
+    }
+
+
+def digit_route_row(torch, np, pts, table) -> dict:
+    """The table route's shared ladder (ops/msm.py::_shared_ladder) at the
+    2^14 prove's shape: round 1's two one-point tails at c = 10, W = 26, as
+    a fixed-table job list against the host MSM and against its plain run
+    on a copy of the table on the CPU; then items with the scalars 0 and
+    r - 1 and of unequal length."""
+    from marlin_tpu_torch.fields import bls12_381 as P
+    from marlin_tpu_torch.fields import host_curve as hc
+    from marlin_tpu_torch.ops import cuda, curve, fr, msm
+    from marlin_tpu_torch.ops import curve_device as cd
+    from marlin_tpu_torch.utils.rand import ZkRng
+
+    r = P.R_MODULUS
+    N = table.n_base
+    cpu_table = msm.FixedBaseTable(table.xy.cpu(), table.c, table.num_windows, N)
+    # the prove's tails: one point each past a 2^14 head, at offsets 0 and 1
+    tails = [(MAIN_HEAD, ZkRng(41).rand_fr_list(1)), (MAIN_HEAD + 1, ZkRng(42).rand_fr_list(1))]
+    edges = [(7, [0, r - 1, 5]), (N - 2, [r - 1, 0]), (100, [0])]
+    checks, e_max, timing = [], 0, None
+    for name, items in (("prove_tails", tails), ("edges", edges)):
+        dev_items = [(off, fr.from_ints(ks, DEV)) for off, ks in items]
+        cuda.reset_launches()
+        got = msm._shared_ladder(table, dev_items)
+        torch.cuda.synchronize()
+        launches = dict(cuda.LAUNCHES)
+        plain = msm._shared_ladder(cpu_table, [(off, fr.from_ints(ks, "cpu")) for off, ks in items])
+        e = max(int((g.cpu().to(torch.int64) - p.to(torch.int64)).abs().max()) for g, p in zip(got, plain))
+        want = [hc.g1_msm(pts[off : off + len(ks)], ks) for off, ks in items]
+        require(cd.to_affine_ints(got) == want, f"shared ladder ({name}) differs from the host MSM")
+        jobs = msm.msm_fixed_many(table, dev_items)  # items of one point or a few: the ladder
+        require(cd.to_affine_ints(tuple(torch.cat([j[i] for j in jobs]) for i in range(3))) == want,
+                f"fixed-table job list ({name}) differs from the host MSM")
+        require(launches["g1_scalar_mul"] == 1, f"shared ladder ({name}): {launches['g1_scalar_mul']} ladder launches")
+        checks.append({"items": [[off, len(ks)] for off, ks in items], "max_abs_err": e,
+                       "launches": {k: v for k, v in launches.items() if v}})
+        e_max = max(e_max, e)
+        if name == "prove_tails":
+            timing = dev_items
+    pairs = len(timing) * table.num_windows
+    scal16 = torch.as_tensor(np.stack([np.asarray([k >> (16 * j) & 0xFFFF for j in range(16)], np.int32)
+                                       for _, ks in tails for k in ks]))
+    d = msm._signed_digits(scal16, table.c, table.num_windows)
+    set_bits = sum(bin(int(v)).count("1") for v in d.abs().reshape(-1).tolist())
+    most = max(bin(int(v)).count("1") for v in d.abs().reshape(-1).tolist())
+    b_ms, b_by = bound(pairs * (6 * FQ_BYTES + 64) + len(tails) * 3 * FQ_BYTES,
+                       product_ops("fq", pairs * table.c * 7 + set_bits * 16 + (pairs - len(tails)) * 16))
+    levels = (table.num_windows - 1).bit_length()
+    return {
+        "shape": f"{len(tails)} items x 1 point x {table.num_windows} windows, c={table.c}",
+        "max_abs_err": e_max, "checks": checks, "pairs": pairs,
+        "ms": time_ms(torch, lambda: msm._shared_ladder(table, timing), reps=10),
+        "plain_ms": time_ms(torch, lambda: msm._shared_ladder(
+            cpu_table, [(off, fr.from_ints(ks, "cpu")) for off, ks in tails]), reps=3),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "chain_floor_ms": chain_floor_ms(table.c * DOUBLING_LEVELS + most * ADD_LEVELS + levels * ADD_LEVELS),
     }
 
 
@@ -687,27 +782,30 @@ def combine_windows_row(torch, np, pts) -> dict:
 
     c, W = COMBINE_C, COMBINE_W
     stacked, affs = sums(W, 21)
-    got = curve.combine_windows_kernel(stacked, c)
-    e = err(got, curve.combine_windows_plain(stacked, c))
     horner = None
     for w, s in enumerate(affs):
         horner = hc.g1_add(horner, hc.g1_mul(s, 1 << (c * w)) if s else None)
-    require(cd.to_affine_ints(got) == [horner], "combine_windows: the sum differs from the host's")
-    checks = [{"c": c, "W": W, "max_abs_err": e}]
+    plain = curve.combine_windows_plain(stacked, c)
     wide, _ = sums(curve.COMBINE_MAX, 22)
-    e_wide = err(curve.combine_windows_kernel(wide, 2), curve.combine_windows_plain(wide, 2))
-    checks.append({"c": 2, "W": curve.COMBINE_MAX, "max_abs_err": e_wide})
-    # the chain of the longest lane, and all lanes' doublings (7 products each)
+    wide_plain = curve.combine_windows_plain(wide, 2)
+    got = curve.combine_windows_kernel(stacked, c)
+    require(cd.to_affine_ints(got) == [horner], "combine_windows: the sum differs from the host's")
+    checks = [{"c": c, "W": W, "max_abs_err": err(got, plain)},
+              {"c": 2, "W": curve.COMBINE_MAX,
+               "max_abs_err": err(curve.combine_windows_kernel(wide, 2), wide_plain)}]
+    # all windows' doublings (7 products each) over the card's peak rate; the
+    # chain floor: the longest window's doublings and the tree's adds, levels deep
     doublings = c * W * (W - 1) // 2
-    b_ms, b_by = bound((W + 1) * 3 * FQ_BYTES, product_ops("fq", doublings * 7))
+    b_ms, b_by = bound((W + 1) * 3 * FQ_BYTES, product_ops("fq", doublings * 7 + (W - 1) * 16))
     return {
-        "route": "cuda", "source": "marlin_tpu_torch/csrc/curve.cu",
+        "route": "cuda", "source": "marlin_tpu_torch/csrc/chain.cu",
         "replaces": "marlin_tpu/ops/pallas/curve.py:476",
-        "max_abs_err": max(e, e_wide), "checks": checks,
+        "max_abs_err": max(ch["max_abs_err"] for ch in checks), "checks": checks,
         "shape": f"[{W}, 1] Jacobian window sums, c={c}", "chain_doublings": c * (W - 1),
         "ms": time_ms(torch, lambda: curve.combine_windows_kernel(stacked, c)),
         "plain_ms": time_ms(torch, lambda: curve.combine_windows_plain(stacked, c), reps=1, warmup=0),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "chain_floor_ms": chain_floor_ms(c * (W - 1) * DOUBLING_LEVELS + (W - 1).bit_length() * ADD_LEVELS),
     }
 
 
@@ -852,7 +950,8 @@ def phase_main(torch) -> tuple:
     rng_at_prove = copy.deepcopy(rng)
     profiling.enable(True)
     profiling.collect()
-    with counted_msm_calls() as seen, watched_transforms() as watched, contextlib.redirect_stdout(io.StringIO()):
+    with counted_msm_calls() as seen, watched_transforms() as watched, recorded_ladders() as ladders, \
+            contextlib.redirect_stdout(io.StringIO()):
         proof = timed("prove", lambda: Marlin.prove(pk, circ, rng, device=DEV))
     spans = profiling.collect()
     profiling.enable(False)
@@ -878,6 +977,7 @@ def phase_main(torch) -> tuple:
         prove_host_msm_calls=seen["host_calls"],
         prove_inversions=watched["inversions"],
         prove_transforms=watched["transforms"],
+        prove_ladders=ladders,
         proof_bytes=proof.serialized_size(),
         verifies=bool(ok),
     )
@@ -894,6 +994,10 @@ def phase_main(torch) -> tuple:
     # it was the prove's only caller of the doubling kernel
     require(prove_launches["g1_scalar_mul"] == 1,
             f"the 2^14 prove launched the ladder {prove_launches['g1_scalar_mul']} times, expected once")
+    # ... over c-bit digits and the table's window rows, not 255-bit scalars
+    table_c = kzg._ensure_msm_table(pk.committer_key.pp).c
+    require([lad["num_bits"] for lad in ladders] == [table_c],
+            f"the 2^14 prove's ladder launches {ladders}, expected one of {table_c} bits")
     require(prove_launches["g1_double"] == 0,
             f"the 2^14 prove launched the doubling {prove_launches['g1_double']} times, expected none")
     require(prove_reruns == 0, f"the 2^14 prove reran {prove_reruns} MSM batches")
@@ -969,6 +1073,26 @@ def watched_transforms():
         yield seen
     finally:
         ntt.transform, routing.inv = transform, inv
+
+
+@contextlib.contextmanager
+def recorded_ladders():
+    """Record each launch of the ladder kernel: its points and bits."""
+    from marlin_tpu_torch.ops import curve
+
+    seen = []
+    kernel = curve.scalar_mul_kernel
+
+    def recording(points, scalar_limbs, num_bits=255):
+        out = kernel(points, scalar_limbs, num_bits)
+        seen.append({"points": int(out[0].numel() // out[0].shape[-1]), "num_bits": num_bits})
+        return out
+
+    curve.scalar_mul_kernel = recording
+    try:
+        yield seen
+    finally:
+        curve.scalar_mul_kernel = kernel
 
 
 @contextlib.contextmanager

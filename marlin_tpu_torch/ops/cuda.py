@@ -23,8 +23,8 @@ import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
-_SOURCES = ("field.cu", "ntt.cu", "curve.cu")
-_HEADERS = ("mont.cuh",)
+_SOURCES = ("field.cu", "ntt.cu", "curve.cu", "chain.cu", "imad.cu")
+_HEADERS = ("mont.cuh", "group.cuh")
 _BUILD_DIR = os.path.join(_PKG, "build")
 _SO = os.path.join(_BUILD_DIR, "libmarlin_cuda.so")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -32,6 +32,9 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # group law's independent Fq products and then spills under the register cap
 # of four blocks an SM; its -O1 schedule keeps them in order (72-162
 # registers, no spill) at the same speed on the H100 (PERF.md, PR 4).
+# chain.cu (the ladder and the window combine) takes ptxas's default -O3 and
+# no register cap: its kernels hold a point and a level's operands in
+# registers (155-186 of them, no spill; PERF.md §6).
 _SOURCE_FLAGS = {"curve.cu": ["-Xptxas", "-O1"]}
 
 # kernel name -> launches since the last reset_launches()
@@ -75,6 +78,13 @@ _SIGNATURES = {
     "marlin_combine_windows": [_P, _P, _P, _I, _I, _P, _P, _P, _P],
     # (which, *regs, *local_bytes, *blocks_per_sm)
     "marlin_curve_kernel_info": [_I, _P, _P, _P],
+    "marlin_chain_kernel_info": [_I, _P, _P, _P],
+    # (rows, in, blocks, iters, out, cycles, stream)
+    "marlin_imad_rate": [_I, _P, _I, _I, _P, _P, _P],
+    # (*blocks_per_sm, *threads)
+    "marlin_imad_rate_shape": [_P, _P],
+    # (nl, in, iters, out, cycles, stream)
+    "marlin_product_chain": [_I, _P, _I, _P, _P, _P],
 }
 
 

@@ -3,9 +3,10 @@
 Port of `marlin_tpu/ops/pallas/curve.py`.  A point batch is a tuple
 (X, Y, Z) of `[.., 24]` int32 Fq Montgomery limb tensors, Jacobian,
 identity <=> Z == 0 (ops/curve_device.py).  Five functions, each as a
-kernel wrapper (csrc/curve.cu) and a plain PyTorch version, routed by the
-tensor's device alone (a CUDA tensor launches the kernel or raises, a CPU
-tensor takes the plain version):
+kernel wrapper (csrc/curve.cu; the ladder and the combine csrc/chain.cu)
+and a plain PyTorch version, routed by the tensor's device alone (a CUDA
+tensor launches the kernel or raises, a CPU tensor takes the plain
+version):
 
 * `add`: the complete Jacobian add, add-2007-bl with its edge cases
   (`_jac_add_planes`, curve.py:65-107);
@@ -45,7 +46,7 @@ FOLD_SUBROWS = 32
 # threads a fold should keep busy (about two blocks of 128 on each of the
 # H100's 132 SMs): lanes take more sub-rows until they reach it
 FOLD_THREADS = 1 << 15
-# most window sums one combine takes (csrc/curve.cu kCombineThreads, and the
+# most window sums one combine takes (csrc/chain.cu kCombineMax, and the
 # TPU kernel's lane tile)
 COMBINE_MAX = 128
 
@@ -341,7 +342,8 @@ def double_kernel(p):
 
 
 def scalar_mul_kernel(points, scalar_limbs: torch.Tensor, num_bits: int = 255):
-    """Kernel 4: the whole double-and-add ladder in one launch."""
+    """Kernel 4: the whole double-and-add ladder in one launch (csrc/chain.cu),
+    four lanes of a warp a point."""
     shape, coords, scal = _scalar_operands(points, scalar_limbs, num_bits)
     coords = [c.contiguous() for c in coords]
     scal = scal.contiguous()
@@ -393,7 +395,8 @@ def bucket_fold_kernel(table: torch.Tensor, layout: torch.Tensor, exact: bool = 
 
 
 def combine_windows_kernel(stacked, c: int):
-    """Kernel 6: see `combine_windows`."""
+    """Kernel 6 (csrc/chain.cu), four lanes of a warp a window: see
+    `combine_windows`."""
     coords = [t.contiguous() for t in _combine_operands(stacked)]
     for i, t in enumerate(coords):
         cuda.require_cuda_field_tensor(t, f"combine_windows coordinate {i}", _L)
@@ -412,19 +415,23 @@ def combine_windows_kernel(stacked, c: int):
     return tuple(out)
 
 
-KERNEL_INFO_NAMES = ("g1_add", "g1_double", "g1_scalar_mul", "bucket_fold", "bucket_fold_exact",
-                     "combine_windows")
+# the kernels of `kernel_info`: (entry, which) by name
+KERNEL_INFO = {
+    "g1_add": ("marlin_curve_kernel_info", 0), "g1_double": ("marlin_curve_kernel_info", 1),
+    "bucket_fold": ("marlin_curve_kernel_info", 2), "bucket_fold_exact": ("marlin_curve_kernel_info", 3),
+    "g1_scalar_mul": ("marlin_chain_kernel_info", 0), "combine_windows": ("marlin_chain_kernel_info", 1),
+}
 
 
 def kernel_info() -> dict:
     """name -> registers, local memory bytes (stack frame and spills) and
-    resident blocks of 128 threads an SM of each curve kernel, from the
-    CUDA runtime (`cudaFuncGetAttributes`, the occupancy calculator)."""
+    resident blocks an SM of each curve kernel, from the CUDA runtime
+    (`cudaFuncGetAttributes`, the occupancy calculator)."""
     out = {}
-    for which, name in enumerate(KERNEL_INFO_NAMES):
+    for name, (entry, which) in KERNEL_INFO.items():
         vals = [ctypes.c_int(0) for _ in range(3)]
-        err = cuda.lib().marlin_curve_kernel_info(which, *(ctypes.byref(v) for v in vals))
-        cuda.check(err, f"curve_kernel_info {name}")
+        err = getattr(cuda.lib(), entry)(which, *(ctypes.byref(v) for v in vals))
+        cuda.check(err, f"kernel_info {name}")
         out[name] = dict(zip(("registers", "local_bytes", "blocks_per_sm"), (v.value for v in vals)))
     return out
 

@@ -25,10 +25,12 @@ caller's tensors and by whether it has a table:
   scans give Σ_b b·S_b.  The top window spans only the modulus's high bits
   and folds apart with its own narrow bucket space.  Jobs under 512 points,
   and tails of at most `_TAIL_MAX` points past a `_FIXED_QUANT` boundary,
-  run through one shared double-and-add ladder.
-* The host route (`MARLIN_TPU_HOST_MSM=1` in the JAX package: `msm` at
-  :1064, `msm_many` at :1104-1112): the native C Pippenger, for points on
-  the CPU.
+  run through one shared ladder over the table's window rows
+  (`_shared_ladder`): c-bit digits, not 255-bit scalars.
+* The host route: the native C Pippenger, for points on the CPU.  The
+  route follows the tensors' device alone; the port does not read the JAX
+  package's `MARLIN_TPU_HOST_MSM` switch (msm.py:1035, :1101-1112), which
+  would move the card's MSMs to the host.
 
 Correctness contract (msm.py:197-216): a bucket that overflows its
 capacity, and a fast mixed add that met P == Q, each leave a nonzero flag
@@ -173,11 +175,6 @@ class FixedBaseTable:
         self.num_windows = num_windows
         self.n_base = n_base
 
-    def point_slice(self, start: int, stop: int) -> cd.Point:
-        """Affine-form (X, Y, Z=1) batch of the powers start..stop-1."""
-        x, y = curve.unpack_xy_rows(self.xy[start:stop])
-        return (x, y, fq.ones((stop - start,), self.xy.device))
-
 
 def _fixed_c(n_base: int) -> int:
     """Signed-window width of the table path: 10 up to 2^17 powers, then
@@ -216,25 +213,36 @@ def build_fixed_table(points: cd.Point, c: int) -> FixedBaseTable:
 # digits and bucket layouts
 
 
+def _digit_rows(scal16: torch.Tensor, c: int, windows) -> torch.Tensor:
+    """[len(windows), ..] radix-2^c digits (int64) of canonical [.., 16]-limb
+    scalars, all windows at once: window w is bits w·c .. w·c + c - 1
+    (c <= 16, so two limbs hold it; past the top limb the bits are 0)."""
+    off = torch.as_tensor(list(windows), dtype=torch.int64, device=scal16.device) * c
+    limbs = torch.nn.functional.pad(scal16.to(torch.int64), (0, 1))
+    lo, hi = limbs[..., off // 16], limbs[..., off // 16 + 1]
+    return (((lo | (hi << 16)) >> (off % 16)) & ((1 << c) - 1)).movedim(-1, 0).contiguous()
+
+
 def _digits(scal16: torch.Tensor, c: int, w: int) -> torch.Tensor:
     """Window-w radix-2^c digit (int64) of canonical [.., 16]-limb scalars."""
-    off = w * c
-    l, o = off // 16, off % 16
-    lo = scal16[..., l].to(torch.int64)
-    hi = scal16[..., l + 1].to(torch.int64) if l + 1 < scal16.shape[-1] else torch.zeros_like(lo)
-    return ((lo | (hi << 16)) >> o) & ((1 << c) - 1)
+    return _digit_rows(scal16, c, [w])[0]
 
 
 def _signed_digits(scal16: torch.Tensor, c: int, num_windows: int) -> torch.Tensor:
-    """[W, ..] int32 balanced signed digits in [-(2^(c-1)-1), 2^(c-1)]."""
+    """[W, ..] int32 balanced signed digits in [-(2^(c-1)-1), 2^(c-1)]:
+    digit w is raw_w + carry_w - 2^c carry_(w+1), where a window carries out
+    when raw + carry in > 2^(c-1).  A raw digit above 2^(c-1) carries out
+    whatever comes in, one below does not, and one equal passes its carry
+    in on: so the carry out of window w is that of the last window <= w
+    whose raw digit is not 2^(c-1) (none: 0), which a running max over
+    the windows finds for all of them at once."""
     half, full = 1 << (c - 1), 1 << c
-    carry = torch.zeros(scal16.shape[:-1], dtype=torch.int64, device=scal16.device)
-    ds = []
-    for w in range(num_windows):
-        raw = _digits(scal16, c, w) + carry
-        carry = (raw > half).to(torch.int64)
-        ds.append(raw - carry * full)
-    return torch.stack(ds).to(torch.int32)
+    raw = _digit_rows(scal16, c, range(num_windows))
+    w = torch.arange(num_windows, device=raw.device).reshape(-1, *([1] * (raw.dim() - 1)))
+    last = torch.where(raw != half, w, -1).cummax(0).values
+    out = torch.where(last >= 0, torch.gather(raw > half, 0, last.clamp(min=0)), False).to(torch.int64)
+    carry_in = torch.cat([torch.zeros_like(out[:1]), out[:-1]])
+    return (raw + carry_in - out * full).to(torch.int32)
 
 
 def _sort_buckets(bucket: torch.Tensor, enc: torch.Tensor, nb: int):
@@ -408,8 +416,7 @@ def _window_digits(points: cd.Point, scal16: torch.Tensor, c: int, windows) -> t
     """[len(windows), n] unsigned digits; identity points get digit 0, so
     they fill no bucket (the fold implies Z = 1 for every filled slot)."""
     ident = cd.is_identity(points)
-    d = torch.stack([_digits(scal16, c, w) for w in windows])
-    return torch.where(ident, 0, d)
+    return torch.where(ident, 0, _digit_rows(scal16, c, windows))
 
 
 # windows of one fold launch: at most this many bucket slots
@@ -642,19 +649,44 @@ def msm_fixed_many(table: FixedBaseTable, jobs: list, exact: bool = False) -> li
 
 
 def _shared_ladder(table: FixedBaseTable, items: list) -> cd.Point:
-    """One ladder over several small (offset, scalars_mont) jobs, each padded
-    with identity points and zero scalars to the longest -> [T] sums."""
+    """Σ_i s_i·P_(off+i) of several small (offset, scalars_mont) items -> [T]
+    sums, over the table's window rows.
+
+    Each scalar is cut into the fold's balanced signed digits
+    (`_signed_digits`, |d| <= 2^(c-1)); its (window w, point i) pair takes
+    table row w·N + off + i, the affine 2^(c·w)·P_(off+i), with Y negated
+    for a negative digit, and |d| as a c-bit scalar.  One ladder launch runs
+    every pair of every item (at most c doublings and c adds a pair), and a
+    halving tree of complete adds, one launch a level over all items, joins
+    each item's W·n pairs (items padded with zero digits to the longest, the
+    pairs with the identity to a power of two).  The JAX package ladders
+    these items over 255 bits (msm.py:980-996): the affine sums agree."""
+    c, W, N = table.c, table.num_windows, table.n_base
+    dev = table.xy.device
+    T = len(items)
     longest = max(s.shape[0] for _, s in items)
-    cols, scals = [], []
-    for off, scal in items:
-        n_t = scal.shape[0]
-        pts = table.point_slice(off, off + n_t)
-        ident = cd.identity((longest - n_t,), table.xy.device)
-        cols.append(tuple(torch.cat([pts[i], ident[i]]) for i in range(3)))
-        scals.append(torch.nn.functional.pad(scal, (0, 0, 0, longest - n_t)))
-    pts = tuple(torch.stack([c[i] for c in cols], dim=1) for i in range(3))  # [longest, T, 24]
-    sums = msm_ladder(pts, torch.stack(scals, dim=1))
-    return tuple(s[0] for s in sums)
+    scal = torch.stack([torch.nn.functional.pad(s, (0, 0, 0, longest - s.shape[0])) for _, s in items])
+    d = _signed_digits(bi.from_mont(fr.CTX, scal), c, W)  # [W, T, longest]; padding: digit 0
+    i = torch.arange(longest, device=dev)
+    n_t = torch.as_tensor([s.shape[0] for _, s in items], device=dev)
+    offs = torch.as_tensor([off for off, _ in items], device=dev)
+    # a padded pair's digit is 0 (the identity): any row serves
+    pos = torch.where(i < n_t[:, None], offs[:, None] + i, 0)
+    rows = torch.arange(W, device=dev)[:, None, None] * N + pos
+    x, y = curve.unpack_xy_rows(table.xy[rows.reshape(-1)])
+    y = torch.where((d < 0).reshape(-1, 1), fq.neg(y), y)
+    mag = torch.zeros((x.shape[0], fr.L), dtype=torch.int32, device=dev)
+    mag[:, 0] = d.abs().reshape(-1)
+    muls = cd.scalar_mul_batch((x, y, fq.ones((x.shape[0],), dev)), mag, c)
+    # [W·longest, T]: an item's pairs along axis 0
+    acc = [m.reshape(W, T, longest, -1).transpose(1, 2).reshape(W * longest, T, -1) for m in muls]
+    size = 1 << (W * longest - 1).bit_length()
+    ident = cd.identity((size - W * longest, T), dev)
+    acc = tuple(torch.cat([a, e]) for a, e in zip(acc, ident))
+    while size > 1:
+        size //= 2
+        acc = cd.add(tuple(a[:size] for a in acc), tuple(a[size:] for a in acc))
+    return tuple(a[0] for a in acc)
 
 
 def msm_ladder(points: cd.Point, scalars_mont: torch.Tensor) -> cd.Point:

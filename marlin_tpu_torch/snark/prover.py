@@ -331,6 +331,14 @@ def prover_second_round(ver_msg, state: ProverState, zk_rng: ZkRng):
         n_mul=n_mul,
     )
 
+    # q_1's analytic degree is <= mul_size - 1; a mixed-radix mul domain can
+    # overshoot it by more than the radix-2 2x, which would pad h_1 past the
+    # SRS bound: drop the provably-zero tail there, keeping h_1 at its exact
+    # degree (<= mul_size - 1 - h).  Power-of-two domains keep their padded
+    # length, as the JAX package does (marlin_tpu/snark/prover.py:364-373).
+    if n_mul & (n_mul - 1) and h_1.shape[0] > mul_size - h:
+        h_1 = h_1[: mul_size - h]
+
     if os.environ.get("MARLIN_TPU_DEBUG_CHECKS") == "1":
         # reference prover.rs:516,556-557
         zk = state.zk_bound

@@ -354,3 +354,93 @@ def test_public_msm_on_the_card_equals_the_host_msm(dev):
         got = cd.to_affine_ints(msm.msm(pts, fr.from_ints(scal, dev)))
         assert got == [hc.g1_msm(affs, scal)], name
         assert cuda.LAUNCHES["combine_windows"] == (2 if name == "duplicates" else 1), name
+
+
+# --------------------------------------------------------------------------
+# the chain kernels (csrc/chain.cu)
+
+
+def test_chain_ladder_matches_plain_with_its_rare_branches(dev):
+    """Raw 255-bit scalars whose last add meets P == Q (r + 2: the ladder
+    holds (r + 1) P = P before it) and P == -Q (r: it holds -P); identity
+    points, the scalars 0, 1 and r - 1, a point off affine form; 37 points,
+    so a block's last warp holds a partial group of points."""
+    from marlin_tpu_torch.fields import bls12_381 as P
+    from marlin_tpu_torch.fields import host_curve as hc
+    from marlin_tpu_torch.ops import curve
+    from marlin_tpu_torch.ops import curve_device as cd
+    from marlin_tpu_torch.ops.limbs import ints_to_limbs
+
+    rng = np.random.default_rng(40)
+    r, q = P.R_MODULUS, P.Q_MODULUS
+    pts = _curve_points(37, 41, dev)
+    pts[6] = None
+    ks = [r + 2, r, 0, 1, r - 1, 5, r - 1] + [int.from_bytes(rng.bytes(40), "little") % r for _ in range(30)]
+    A = cd.from_affine_ints(pts, dev)
+    z = 0x3456789
+    x, y = pts[8]
+    for t, v in zip(A, fq.from_ints([x * z * z % q, y * z**3 % q, z], dev)):
+        t[8] = v
+    scal = torch.as_tensor(ints_to_limbs(ks, 16).astype(np.int32), device=dev)
+    cuda.reset_launches()
+    got = curve.scalar_mul_kernel(A, scal, P.FR_BITS)
+    assert cuda.LAUNCHES["g1_scalar_mul"] == 1
+    for k, p in zip(got, curve.scalar_mul_plain(A, scal, P.FR_BITS)):
+        assert torch.equal(k, p)
+    assert cd.to_affine_ints(got) == [hc.g1_mul(p, k % r) if p else None for p, k in zip(pts, ks)]
+    # c-bit digits: the table route's launches
+    short = curve.scalar_mul_kernel(A, scal, 10)
+    for k, p in zip(short, curve.scalar_mul_plain(A, scal, 10)):
+        assert torch.equal(k, p)
+
+
+@pytest.mark.parametrize("c, W", [(0, 8), (1, 5), (10, 26), (2, 64), (2, 65), (1, 128), (7, 1)])
+def test_chain_combine_matches_plain_with_its_rare_branches(dev, c, W):
+    """Window sums with identities, and pairs that the tree's first level
+    joins equal (P == Q at c = 0) or opposite (P == -Q); W past 64 gives a
+    group two windows."""
+    from marlin_tpu_torch.fields import host_curve as hc
+    from marlin_tpu_torch.ops import curve
+    from marlin_tpu_torch.ops import curve_device as cd
+
+    p = _curve_points(2 * W, 42 + W, dev)
+    sums = [hc.g1_add(a, b) for a, b in zip(p[:W], p[W:])]
+    half = max(1, (1 << (W - 1).bit_length()) >> 1)  # the tree's first level: w takes w + half
+    for w in range(half, W):
+        sums[w] = [sums[w - half], hc.g1_neg(sums[w - half]), None][(w - half) % 3]
+    S = cd.from_affine_ints(sums, dev)
+    stacked = tuple(t[:, None].contiguous() for t in S)
+    cuda.reset_launches()
+    got = curve.combine_windows_kernel(stacked, c)
+    assert cuda.LAUNCHES["combine_windows"] == 1
+    for k, q in zip(got, curve.combine_windows_plain(stacked, c)):
+        assert torch.equal(k, q)
+    want = None
+    for w, s in enumerate(sums):
+        want = hc.g1_add(want, hc.g1_mul(s, 1 << (c * w)) if s else None)
+    assert cd.to_affine_ints(got) == [want]
+
+
+def test_shared_ladder_on_the_card_matches_its_plain_run(dev):
+    """The table route's shared ladder over c-bit digits: one ladder launch
+    of c bits, limb for limb against the plain run on a CPU copy of the
+    table, and the host MSM as affine points."""
+    from marlin_tpu_torch.fields import bls12_381 as P
+    from marlin_tpu_torch.fields import host_curve as hc
+    from marlin_tpu_torch.ops import curve_device as cd
+    from marlin_tpu_torch.ops import msm
+
+    r = P.R_MODULUS
+    pts = _curve_points(12, 43, dev)
+    table = msm.build_fixed_table(cd.from_affine_ints(pts, dev), 10)
+    cpu_table = msm.FixedBaseTable(table.xy.cpu(), table.c, table.num_windows, table.n_base)
+    rng = np.random.default_rng(44)
+    items = [(0, [r - 1, 0, 5]), (3, [int.from_bytes(rng.bytes(40), "little") % r]), (9, [0]),
+             (10, [int.from_bytes(rng.bytes(40), "little") % r, r - 2])]
+    cuda.reset_launches()
+    got = msm._shared_ladder(table, [(off, fr.from_ints(ks, dev)) for off, ks in items])
+    assert cuda.LAUNCHES["g1_scalar_mul"] == 1
+    plain = msm._shared_ladder(cpu_table, [(off, fr.from_ints(ks, "cpu")) for off, ks in items])
+    for k, p in zip(got, plain):
+        assert torch.equal(k.cpu(), p)
+    assert cd.to_affine_ints(got) == [hc.g1_msm(pts[off : off + len(ks)], ks) for off, ks in items]

@@ -46,6 +46,8 @@ _KERNELS = {
     "bucket_fold (fast)": "fold_kernelILb0E",
     "bucket_fold (exact)": "fold_kernelILb1E",
     "combine_windows": "combine_kernel",
+    "imad_rate (4 rows)": "imad_rate_kernelILi4E",
+    "imad_rate (8 rows)": "imad_rate_kernelILi8E",
     "field_inv (fr)": ("inv_kernelI8FrTraitsE", "inv_kernelILi8EE"),
     "field_inv (fq)": ("inv_kernelI8FqTraitsE", "inv_kernelILi12EE"),
     "ntt_block_stages": "block_stages_kernel",

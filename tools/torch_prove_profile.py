@@ -21,7 +21,9 @@ Builds the bench circuit (`DummyCircuit`, 2^log2 constraints, SRS sized by
   largest fold, round 3's three jobs of 2^16 - 1 scalars, for the bucket
   fold, and the classic route's [16384, 128] windows; 26 window sums at
   c = 10, the classic Pippenger's largest in that prove, for the window
-  combine; the ladder of `scalar_mul_batch` at 2 and 512 points), 20
+  combine; the ladder of `scalar_mul_batch` at 2 and 512 points; the
+  table route's shared ladder over c-bit digits for the prove's two
+  one-point tails, its ladder launch and its join's adds), 20
   launches under the profiler (5 for the ladder): its device time per
   launch, free of the wrapper's host overhead that CUDA-event timing of a
   Python call includes.  A ladder that runs as many launches (the host
@@ -75,6 +77,8 @@ def _profiled_prove(torch, Marlin, pk, circ, rng) -> dict:
         "device_busy_ms": busy_ms if kernels else None,
         "device_busy_share": busy_ms / (wall * 1e3) if kernels else None,
         "device_time_by_kernel": kernels[:40],
+        # the port's own kernels (csrc/), whatever their rank
+        "port_kernels": [k for k in kernels if "(anonymous namespace)::" in k["name"]],
     }
 
 
@@ -157,6 +161,9 @@ _KERNEL_SYMBOLS = {
     # the ladder: one scalar_mul launch, or the host loop's double and add
     "scalar_mul_batch (2 points)": ("scalar_mul_kernel", "::add_kernel", "::double_kernel"),
     "scalar_mul_batch (512 points)": ("scalar_mul_kernel", "::add_kernel", "::double_kernel"),
+    # the table route's shared ladder over c-bit digits (the prove's two
+    # one-point tails): one scalar_mul launch and the join's adds
+    "shared ladder (2 one-point items, c=10)": ("scalar_mul_kernel", "::add_kernel"),
 }
 
 
@@ -195,6 +202,8 @@ def _kernel_device_times(torch, reps: int = 20) -> dict:
     classic[:, 64:] = 0
     xy_n = xy[:n].contiguous()
     scans = [tuple(c[:1539].contiguous() for c in pt) for pt in (p, q)]
+    tails = [(1 << 14, fr.from_ints([3 ** 160 % fr.CTX.modulus], dev)),
+             (1 << 14 | 1, fr.from_ints([5 ** 110 % fr.CTX.modulus], dev))]
     ladder = {}
     for m in (2, 512):
         sc = torch.as_tensor(random_elements(np, rng, fr.CTX, max(m, 4))[:m], device=dev)
@@ -215,6 +224,7 @@ def _kernel_device_times(torch, reps: int = 20) -> dict:
         "combine_windows (c=10, W=26)": lambda: curve.combine_windows_kernel(windows, 10),
         "scalar_mul_batch (2 points)": lambda: cd.scalar_mul_batch(*ladder[2], 255),
         "scalar_mul_batch (512 points)": lambda: cd.scalar_mul_batch(*ladder[512], 255),
+        "shared ladder (2 one-point items, c=10)": lambda: msm._shared_ladder(table, tails),
     }
     out = {}
     for label, fn in calls.items():
