@@ -50,7 +50,23 @@ Phases, each printing one line of JSON:
    exact classic rerun must equal the host MSM;
 9. sonic   — `MarlinSonic` on `DummyCircuit` at 2^11 on the CPU and on the
    card (equal proof bytes), then at 2^14 on the card: the proof verifies
-   at 759 B, with no host MSM call.
+   at 759 B, with no host MSM call;
+10. bn254, synthetic_lowadic, bls12_377 — each curve in a process of its
+   own (`--curve`, with `MARLIN_TPU_CURVE` set; the build phase compiled its
+   library beside BLS12-381's): its main path on the card (`DummyCircuit`
+   at 2^14, at 2^11 for BLS12-377: setup with the G1
+   powers by kernel 4's ladder, index, prove, verify, a wrong input and a
+   flipped byte rejected, no host MSM, every NTT in its kernels, on
+   synthetic_lowadic's mixed-radix domains |H| = 18,432 and |K| = 55,296
+   with the inner transforms through kernel 3 and none on the host), the
+   classic route's proof equal to the table route's; its kernel rows at its
+   main path's shapes against their plain versions (and, for
+   synthetic_lowadic, the mixed transforms at n1 = 3, 9 and 27); its card
+   proof equal to a CPU proof made beside the earlier phases (`--cpu-proof`:
+   BN254 at 2^10, synthetic_lowadic at 2^11 under
+   MARLIN_TPU_FR_TWO_ADICITY_CAP = 10, so both domains are mixed, and
+   BLS12-377's main proof at 2^11); and for BN254 a MarlinSonic prove at
+   2^11.
 
 The build phase also records the curve, chain, inversion and NTT block
 kernels' registers, stack frame and spills (`ptxas -v`, which must show no
@@ -61,7 +77,9 @@ and of one doubling step (tools/imad_rate.py): the operation bounds divide
 by the card's peak multiply rate in the same unit, beside which the
 measured rate is recorded as the share reached, and the ladder's and the
 combine's chain floors multiply their dependent levels by that latency.  Then the kernel table, the card's
-name and power limit, and, as the last line, `{"ok": true, "device": {...}}`.  Any failure
+name and power limit, and, as the last line, `{"ok": true, "device": {...}}`.
+The kernel table holds BLS12-381's rows and, named `<curve>:<kernel>`,
+each other curve's.  Any failure
 exits nonzero before that line.  Needs one CUDA device and the repository beside this script;
 imports nothing of JAX.  `--out` also writes every phase's record to PATH.
 """
@@ -238,25 +256,34 @@ def phase_build(torch) -> dict:
 
     from marlin_tpu_torch.ops import cuda, curve
 
-    secs = cuda.build()
+    # every curve's library in one parallel round of nvcc (the other curves'
+    # processes then find theirs built)
+    secs = cuda.build(list(cuda.CURVE_IDS))
     cuda.lib()
-    reports = {src: ptxas_report(os.path.join(cuda._BUILD_DIR, src + ".ptxas.txt"))
-               for src in {s for s, _ in PTXAS_KERNELS.values()}}
-    ptxas = {}
-    for label, (src, frag) in PTXAS_KERNELS.items():
-        hits = [v for k, v in reports[src].items() if frag in k and "registers" in v]
-        require(len(hits) == 1, f"ptxas: {len(hits)} reports for {label}")
-        ptxas[label] = hits[0]
-        require(hits[0].get("spill_stores", 0) == 0 and hits[0].get("spill_loads", 0) == 0,
-                f"ptxas: {label} spills: {hits[0]}")
-    sass = sass_count.count(cuda._SO)
+    ptxas, ptxas_curves = {}, {}
+    for name in cuda.CURVE_IDS:
+        reports = {src: ptxas_report(os.path.join(cuda.build_dir(name), src + ".ptxas.txt"))
+                   for src in {s for s, _ in PTXAS_KERNELS.values()}}
+        rec = {}
+        for label, (src, frag) in PTXAS_KERNELS.items():
+            hits = [v for k, v in reports[src].items() if frag in k and "registers" in v]
+            require(len(hits) == 1, f"ptxas: {len(hits)} reports for {label} ({name})")
+            rec[label] = hits[0]
+            require(hits[0].get("spill_stores", 0) == 0 and hits[0].get("spill_loads", 0) == 0,
+                    f"ptxas: {label} spills ({name}): {hits[0]}")
+        ptxas_curves[name] = rec
+    ptxas = ptxas_curves[cuda.active_curve()]
+    sass = sass_count.count(cuda.lib_path())
     for field in ("fr", "fq"):
         MULS_PER_PRODUCT[field] = sass["product"][field]["multiplies"]
     peak = integer_peak(torch)
     measured = imad_rate.measure(torch)
     PEAK_OPS_PER_S = peak["ops_per_s"]
     FQ_PRODUCT_US = measured["latency"]["fq_product"]["us_per_product"]
-    return {"seconds": secs, "ptxas": ptxas, "runtime": curve.kernel_info(),
+    return {"seconds": secs, "curves": list(cuda.CURVE_IDS), "ptxas": ptxas,
+            "ptxas_by_curve": {c: {k: v.get("registers") for k, v in r.items()}
+                               for c, r in ptxas_curves.items()},
+            "runtime": curve.kernel_info(),
             "kernel_sass": sass["kernels"],
             "product_sass": {f: {k: v for k, v in r.items() if k != "binop_mul_kernel"}
                              for f, r in sass["product"].items()},
@@ -269,7 +296,7 @@ def chain_floor_ms(levels: float) -> float:
     return levels * FQ_PRODUCT_US / 1e3
 
 
-FQ_BYTES = 96  # one Fq element in the int32 limb layout (24 words)
+FQ_BYTES = 96  # one Fq element in the int32 limb layout (24 words; `set_curve_shapes`)
 
 
 # --------------------------------------------------------------------------
@@ -399,11 +426,23 @@ def inversion_row(torch, np, rng, err) -> dict:
     }
 
 
+def stage_plan(ntt, n: int, inverse: bool, dev) -> tuple:
+    """(log2 of the radix-2 transforms that kernel 3 runs, their twiddle
+    table, the input scale): n's own for a power of two, the inner
+    transforms of its Cooley-Tukey split for a mixed-radix size."""
+    if n & (n - 1) == 0:
+        tw, scale = ntt._plan_tensors(n, inverse, dev)
+        return n.bit_length() - 1, tw, scale
+    _, n2, tw, _, _, scale = ntt._mixed_tensors(n, inverse, dev)
+    return n2.bit_length() - 1, tw, scale
+
+
 def ntt_rows(torch, np, rng, err) -> dict:
     """Kernel 3 at the prove's shapes: whole transforms forward and inverse
     against the plain route, then each stage kernel against its plain twin,
     timed: 3(a) forward (its gather) and inverse (its gather and n^-1),
-    3(b) at the last stage."""
+    3(b) at the last stage.  A mixed-radix shape's stage kernels run its
+    inner radix-2 transforms, as its transforms do."""
     from marlin_tpu_torch.ops import fr, ntt
 
     dev = torch.device(DEV)
@@ -411,7 +450,7 @@ def ntt_rows(torch, np, rng, err) -> dict:
     blocks, crosses = [], []
     for shape in NTT_PROVE_SHAPES:
         n, total = shape[-1], int(np.prod(shape))
-        log_n = n.bit_length() - 1
+        log_n = stage_plan(ntt, n, False, dev)[0]
         v = torch.as_tensor(random_elements(np, rng, fr.CTX, total), device=dev).reshape(*shape, fr.L)
         for inverse in (False, True):
             e = err(ntt.transform(v, inverse), ntt.transform(v, inverse, plain=True))
@@ -421,7 +460,7 @@ def ntt_rows(torch, np, rng, err) -> dict:
         row = {"shape": f"{list(shape)}, {log_b} stages"}
         # forward (the gather), then inverse (the gather and n^-1)
         for label, inverse in (("", False), ("inverse_", True)):
-            tw, scale = ntt._plan_tensors(n, inverse, dev)
+            _, tw, scale = stage_plan(ntt, n, inverse, dev)
             kb = ntt.block_stages_kernel(flat, tw, log_b, log_n, scale)
             pb = ntt.block_stages_plain(flat, tw, log_b, log_n, scale)
             b_ms, b_by = bound(2 * total * 64 + ((1 << log_b) - 1) * 64,
@@ -439,7 +478,7 @@ def ntt_rows(torch, np, rng, err) -> dict:
         s_top = log_n - 1
         scratch = kb.clone()
         e_cross = err(ntt.cross_stage_kernel(kb.clone(), tw, s_top), ntt.cross_stage_plain(pb, tw, s_top))
-        b_ms, b_by = bound(2 * total * 64 + (n // 2) * 64, product_ops("fr", total // 2))
+        b_ms, b_by = bound(2 * total * 64 + (1 << s_top) * 64, product_ops("fr", total // 2))
         crosses.append({
             "shape": f"{list(shape)}, stage {s_top}", "max_abs_err": e_cross,
             "ms": time_ms(torch, lambda: ntt.cross_stage_kernel(scratch, tw, s_top)),
@@ -468,13 +507,20 @@ def ntt_rows(torch, np, rng, err) -> dict:
 
 
 def curve_points(np, n: int, seed: int) -> list:
-    """n affine multiples of the generator by seeded nonzero scalars."""
-    from marlin_tpu_torch.fields import bls12_381 as P
+    """n affine multiples of the generator by seeded nonzero scalars: the
+    native C fixed-base routine for BLS12-381, kernel 4's ladder on the card
+    and one normalization for a curve the C runtime does not carry."""
+    from marlin_tpu_torch.fields import active as P
     from marlin_tpu_torch.fields import host_curve as hc
+    from marlin_tpu_torch.fields import native_curve as nc
+    from marlin_tpu_torch.ops import curve_device as cd
+    from marlin_tpu_torch.ops import msm
 
     rng = np.random.default_rng(seed)
     ks = [int.from_bytes(rng.bytes(40), "little") % (P.R_MODULUS - 1) + 1 for _ in range(n)]
-    return hc.g1_fixed_base_powers(hc.G1_GEN, ks)
+    if nc.available():
+        return hc.g1_fixed_base_powers(hc.G1_GEN, ks)
+    return cd.to_affine_ints_host(cd.normalize_batch(msm.fixed_base_powers(hc.G1_GEN, ks, DEV)))
 
 
 def fold_layout(torch, table, jobs, seed: int):
@@ -498,8 +544,10 @@ def fold_layout(torch, table, jobs, seed: int):
 
 
 def classic_fold_layout(torch, np, pts, seed: int):
-    """Lane-major layouts [16·1024, 128] of windows 0-15 of a classic MSM
-    over the points with seeded random scalars, as msm_pippenger folds them."""
+    """Lane-major layouts [windows·nb, cap] of a classic MSM over the points
+    with seeded random scalars, as msm_pippenger folds them: its windows
+    whose buckets fit their capacity (the others take its masked sums), as
+    many as one fold launch takes (16 of 1024 buckets at BLS12-381's 2^16)."""
     from marlin_tpu_torch.ops import curve_device as cd
     from marlin_tpu_torch.ops import msm
     from marlin_tpu_torch.utils.rand import ZkRng
@@ -509,8 +557,10 @@ def classic_fold_layout(torch, np, pts, seed: int):
     scal16 = torch.as_tensor(ZkRng(seed).rand_fr_limbs(n).astype("int32"), device=DEV)
     c = min(13, max(6, n.bit_length() - 6))
     num_windows, nb, cap = msm._classic_shape(n, c)
-    windows = range(min(num_windows - 1, msm._CLASSIC_MAX_SLOTS // (nb * cap)))
-    d = msm._window_digits(points, scal16, c, windows)
+    d = msm._window_digits(points, scal16, c, range(num_windows))
+    counts = msm._bucket_counts(d, nb).cpu().numpy()
+    normal = [w for w in range(num_windows) if counts[w, 1:].max(initial=0) <= cap]
+    d = d[normal[: msm._CLASSIC_MAX_SLOTS // (nb * cap)]]
     layouts, spill = msm._window_layout_device(d, nb, cap)
     require(int(spill) == 0, "classic fold layout spilled")
     return layouts.reshape(-1, cap)
@@ -638,7 +688,7 @@ def scalar_mul_row(torch, np, pts, jac, table) -> dict:
     (2 points, 255 bits) and at 512 points with identity points, a Jacobian
     point and the scalars 0, 1 and r - 1; then the table route's shared
     ladder over c-bit digits."""
-    from marlin_tpu_torch.fields import bls12_381 as P
+    from marlin_tpu_torch.fields import active as P
     from marlin_tpu_torch.fields import host_curve as hc
     from marlin_tpu_torch.ops import curve
     from marlin_tpu_torch.ops import curve_device as cd
@@ -704,7 +754,7 @@ def digit_route_row(torch, np, pts, table) -> dict:
     a fixed-table job list against the host MSM and against its plain run
     on a copy of the table on the CPU; then items with the scalars 0 and
     r - 1 and of unequal length."""
-    from marlin_tpu_torch.fields import bls12_381 as P
+    from marlin_tpu_torch.fields import active as P
     from marlin_tpu_torch.fields import host_curve as hc
     from marlin_tpu_torch.ops import cuda, curve, fr, msm
     from marlin_tpu_torch.ops import curve_device as cd
@@ -830,7 +880,7 @@ class DummyCircuit:
         self.num_constraints = num_constraints
 
     def generate_constraints(self, cs):
-        from marlin_tpu_torch.fields import bls12_381 as P
+        from marlin_tpu_torch.fields import active as P
         from marlin_tpu_torch.snark.r1cs import lc
 
         R = P.R_MODULUS
@@ -881,7 +931,7 @@ def phase_small() -> dict:
 def phase_medium(torch) -> dict:
     """DummyCircuit at 2^11 on the CPU and on the card: equal proof bytes,
     with every commit on the card's table MSM (an SRS of 8192 powers)."""
-    from marlin_tpu_torch.fields import bls12_381 as P
+    from marlin_tpu_torch.fields import active as P
     from marlin_tpu_torch.ops import cuda
     from marlin_tpu_torch.snark import kzg
     from marlin_tpu_torch.snark.marlin import Marlin
@@ -918,7 +968,7 @@ def phase_medium(torch) -> dict:
 
 
 def phase_main(torch) -> tuple:
-    from marlin_tpu_torch.fields import bls12_381 as P
+    from marlin_tpu_torch.fields import active as P
     from marlin_tpu_torch.ops import cuda, ntt
     from marlin_tpu_torch.snark import ahp, kzg
     from marlin_tpu_torch.snark.domains import compute_size_of_domain
@@ -1229,7 +1279,7 @@ def phase_public_msm(torch, np, dev_powers, powers) -> dict:
     scalars; duplicate points, whose fast fold flags and which msm() reruns
     exactly; an identity and a point off affine form; a batch below the
     classic Pippenger's minimum (the ladder)."""
-    from marlin_tpu_torch.fields import bls12_381 as P
+    from marlin_tpu_torch.fields import active as P
     from marlin_tpu_torch.fields import host_curve as hc
     from marlin_tpu_torch.ops import cuda, fq, fr, msm
     from marlin_tpu_torch.ops import curve_device as cd
@@ -1279,7 +1329,7 @@ def phase_public_msm(torch, np, dev_powers, powers) -> dict:
 
 def phase_sonic(torch) -> dict:
     """MarlinSonic at 2^11 on the CPU and on the card, then at 2^14 on the card."""
-    from marlin_tpu_torch.fields import bls12_381 as P
+    from marlin_tpu_torch.fields import active as P
     from marlin_tpu_torch.snark.marlin import MarlinSonic
     from marlin_tpu_torch.utils.rand import test_rng
 
@@ -1318,15 +1368,387 @@ def phase_sonic(torch) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# the other curves.  The curve is chosen once a process (MARLIN_TPU_CURVE,
+# fields/active.py), so each runs in a process of its own: `--curve NAME`
+# runs that curve's phases, `--cpu-proof` its CPU reference proof.  The
+# parent (BLS12-381) builds every curve's library in its build phase,
+# starts the CPU reference proofs beside its own phases, and runs each
+# curve's process after them.
+#
+# log2: the constraints of the curve's main path (setup on the card, index,
+# prove, verify, the classic route's proof); cpu_log2: the prove held
+# against the CPU's proof bytes (for BLS12-377 the main path's own); cap: MARLIN_TPU_FR_TWO_ADICITY_CAP for that
+# comparison, low enough that every domain of it is mixed-radix; sonic_log2:
+# a MarlinSonic prove on the card.
+CURVES = {
+    "bn254": {"log2": 14, "cpu_log2": 10, "cap": None, "sonic_log2": 11},
+    "synthetic_lowadic": {"log2": 14, "cpu_log2": 11, "cap": 10, "sonic_log2": None},
+    "bls12_377": {"log2": 11, "cpu_log2": 11, "cap": None, "sonic_log2": None},
+}
+# synthetic_lowadic's mixed transforms at n1 = 3, 9 and 27 beside the prove's
+MIXED_EXTRA_SHAPES = ((3 << 11,), (9 << 11,), (27 << 11,))
+SMOKE_DIR = os.path.join(ROOT, "marlin_tpu_torch", "build", "smoke")
+
+
+@contextlib.contextmanager
+def two_adicity_cap(cap):
+    """MARLIN_TPU_FR_TWO_ADICITY_CAP = cap (None: as it is) for the block:
+    the domains of a prove and of its verify are chosen under it."""
+    old = os.environ.get("MARLIN_TPU_FR_TWO_ADICITY_CAP")
+    if cap is not None:
+        os.environ["MARLIN_TPU_FR_TWO_ADICITY_CAP"] = str(cap)
+    try:
+        yield
+    finally:
+        if cap is not None:
+            if old is None:
+                os.environ.pop("MARLIN_TPU_FR_TWO_ADICITY_CAP")
+            else:
+                os.environ["MARLIN_TPU_FR_TWO_ADICITY_CAP"] = old
+
+
+def prove_bytes_on(device, log2: int):
+    """Marlin on DummyCircuit(2^log2) from a fresh test_rng(): setup
+    (n, n, 3n), index, prove on `device` -> (proof bytes, vk, public input,
+    rng after the prove, index key)."""
+    from marlin_tpu_torch.fields import active as P
+    from marlin_tpu_torch.snark.marlin import Marlin
+    from marlin_tpu_torch.utils.rand import test_rng
+
+    n = 1 << log2
+    rng = test_rng()
+    a, b = rng.rand_fr(), rng.rand_fr()
+    circ = DummyCircuit(a, b, num_variables=10, num_constraints=n)
+    srs = Marlin.universal_setup(n, n, 3 * n, rng, device=device)
+    pk, vk = Marlin.index(srs, circ, device=device)
+    with contextlib.redirect_stdout(io.StringIO()):
+        proof = Marlin.prove(pk, circ, rng, device=device)
+    return proof.to_bytes(), vk, [a * b % P.R_MODULUS], rng, pk
+
+
+def cpu_proof_main(curve: str, out: str) -> int:
+    """`--cpu-proof CURVE --out PATH`: the curve's reference proof on the
+    CPU (plain versions, the host MSM), its bytes as hex to PATH."""
+    import torch
+
+    torch.set_num_threads(2)
+    cfg = CURVES[curve]
+    t = time.perf_counter()
+    with two_adicity_cap(cfg["cap"]):
+        proof, *_ = prove_bytes_on("cpu", cfg["cpu_log2"])
+    _write(out, {"curve": curve, "log2": cfg["cpu_log2"], "cap": cfg["cap"], "proof": proof.hex(),
+                 "seconds": time.perf_counter() - t})
+    return 0
+
+
+def start_cpu_proofs() -> dict:
+    """Start every curve's CPU reference proof in a process of its own."""
+    os.makedirs(SMOKE_DIR, exist_ok=True)
+    procs = {}
+    for curve in CURVES:
+        out = os.path.join(SMOKE_DIR, f"cpu_proof_{curve}.json")
+        if os.path.exists(out):
+            os.remove(out)
+        env = dict(os.environ, MARLIN_TPU_CURVE=curve)
+        env.pop("MARLIN_TPU_FR_TWO_ADICITY_CAP", None)
+        procs[curve] = (subprocess.Popen([sys.executable, os.path.abspath(__file__), "--cpu-proof", curve,
+                                          "--out", out], cwd=ROOT, env=env,
+                                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), out)
+    return procs
+
+
+def set_curve_shapes(log2: int, K: int, inversions: list, transforms: list, jobs: list,
+                     n_powers: int) -> None:
+    """The kernel rows' shapes for the active curve, from its main path: the
+    NTT shapes and the inversions its prove ran, the largest MSM jobs of its
+    prove (the table fold), its SRS's powers (add, double and the table
+    build's Fq normalization)."""
+    global FR_N, FQ_N, INV_SHAPES, NTT_PROVE_SHAPES, CURVE_N, MAIN_HEAD, FOLD_JOBS, FQ_BYTES
+    from marlin_tpu_torch.fields import active as P
+    from marlin_tpu_torch.ops import fq, msm
+
+    FQ_BYTES = 4 * fq.L
+    FR_N, FQ_N = K, 1 << min(log2, 14)
+    c = msm._fixed_c(n_powers)
+    fr_sizes = sorted({i["n"] for i in inversions if i["field"] == "fr"}, reverse=True)
+    INV_SHAPES = tuple(("fr", n) for n in fr_sizes) + (("fq", (msm.fixed_table_windows(c) - 1) * n_powers),)
+    # the prove's transforms of at least 2^10 points (a 2-point domain's are no kernel row)
+    shapes = sorted({tuple(t["shape"]) for t in transforms if t["shape"][-1] >= 1 << 10},
+                    key=lambda sh: (sh[-1], sh))
+    if (K,) not in shapes:
+        shapes.append((K,))
+    if P.CURVE_NAME == "synthetic_lowadic":
+        shapes += [sh for sh in MIXED_EXTRA_SHAPES if sh not in shapes]
+    NTT_PROVE_SHAPES = tuple(shapes)
+    CURVE_N = n_powers
+    MAIN_HEAD = 1 << log2
+    # the table fold of the largest size that three jobs share (round 3's)
+    sizes = [size for _, size in jobs]
+    big = max((size for size in set(sizes) if sizes.count(size) >= 3), default=max(sizes))
+    FOLD_JOBS = tuple(j for j in jobs if j[1] == big)[:3]
+
+
+def curve_main(torch, curve: str) -> tuple:
+    """The curve's main path on the card: setup (the G1 powers by kernel 4's
+    ladder), index, prove, verify; a wrong input and a flipped byte are
+    rejected; the prove calls no host MSM and reruns nothing; on a
+    mixed-radix domain every transform runs on the card, its inner
+    transforms through kernel 3; then the classic route's proof from the
+    same rng state has the same bytes."""
+    from marlin_tpu_torch.fields import active as P
+    from marlin_tpu_torch.ops import cuda, ntt
+    from marlin_tpu_torch.snark import kzg
+    from marlin_tpu_torch.snark.marlin import Marlin
+    from marlin_tpu_torch.utils.rand import test_rng
+
+    cfg = CURVES[curve]
+    n = 1 << cfg["log2"]
+    rng = test_rng()
+    a, b = rng.rand_fr(), rng.rand_fr()
+    circ = DummyCircuit(a, b, num_variables=10, num_constraints=n)
+    public = [a * b % P.R_MODULUS]
+    rec = {"curve": curve, "num_constraints": n}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        rec[f"{name}_s"] = time.perf_counter() - t
+        return res
+
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    for k in ntt.MIXED_TRANSFORMS:
+        ntt.MIXED_TRANSFORMS[k] = 0
+    srs = timed("setup", lambda: Marlin.universal_setup(n, n, 3 * n, rng, device=DEV))
+    pk, vk = timed("index", lambda: Marlin.index(srs, circ, device=DEV))
+    before = dict(cuda.LAUNCHES)
+    mixed_before = dict(ntt.MIXED_TRANSFORMS)
+    reruns = kzg.STATS["exact_reruns"]
+    rng_at_prove = copy.deepcopy(rng)
+    with counted_msm_calls() as seen, watched_transforms() as watched, \
+            contextlib.redirect_stdout(io.StringIO()):
+        proof = timed("prove", lambda: Marlin.prove(pk, circ, rng, device=DEV))
+    prove_launches = {k: v - before[k] for k, v in cuda.LAUNCHES.items()}
+    mixed = {k: v - mixed_before[k] for k, v in ntt.MIXED_TRANSFORMS.items()}
+    ok = timed("verify", lambda: Marlin.verify(vk, public, proof, rng, device=DEV))
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    blob = proof.to_bytes()
+    flipped = bytearray(blob)
+    flipped[len(flipped) // 2] ^= 0x01
+    h, k = pk.index.domain_h.size, pk.index.domain_k.size
+    rec.update(H=h, K=k, launches=launches, prove_launches=prove_launches,
+               binop_launches={f"{f}.{op}": v for (f, op), v in sorted(cuda.BINOP_LAUNCHES.items())},
+               prove_msm_jobs=seen["jobs"], prove_host_msm_calls=seen["host_calls"],
+               prove_exact_reruns=kzg.STATS["exact_reruns"] - reruns, prove_inversions=watched["inversions"],
+               prove_transforms=watched["transforms"], prove_mixed_transforms=mixed,
+               srs_powers=srs.powers_of_g[0].shape[0], proof_bytes=len(blob), verifies=bool(ok))
+    require(ok, f"{curve}: the 2^{cfg['log2']} proof does not verify")
+    require(_rejects(Marlin, vk, [(public[0] + 1) % P.R_MODULUS], blob, rng, DEV),
+            f"{curve}: a wrong input was accepted")
+    require(_rejects(Marlin, vk, public, bytes(flipped), rng, DEV), f"{curve}: a flipped byte was accepted")
+    for name, v in launches.items():
+        require(v > 0 or name == "combine_windows", f"{curve}: kernel {name} was not launched on the main path")
+    require(seen["host_calls"] == 0, f"{curve}: the prove called the host MSM {seen['host_calls']} times")
+    require(rec["prove_exact_reruns"] == 0, f"{curve}: the prove reran {rec['prove_exact_reruns']} MSM batches")
+    require(mixed["cpu"] == 0, f"{curve}: {mixed['cpu']} mixed-radix transforms ran on the host")
+    for t in watched["transforms"]:
+        size = t["shape"][-1]
+        log_n = stage_plan(ntt, size, False, torch.device(DEV))[0]
+        want = (1, log_n - min(log_n, ntt.BLOCK_LOG2))
+        # a mixed transform: its inner batch in one 3(a) launch, the twiddle,
+        # the small DFT's product and modsum's two products of Fr
+        muls = 4 if size & (size - 1) else 0
+        require((t["block_launches"], t["cross_launches"]) == want and t["fr_mul_launches"] == muls
+                and not set(t["ops"]) & GATHER_OPS, f"{curve}: an NTT of the prove ran outside its kernels: {t}")
+    if h & (h - 1) or k & (k - 1):
+        require(mixed["cuda"] > 0, f"{curve}: mixed domains, but no mixed transform on the card")
+    # the classic Pippenger from the same rng state: the same bytes
+    cuda.reset_launches()
+    with classic_route(), counted_msm_calls() as seen_c, contextlib.redirect_stdout(io.StringIO()):
+        classic = timed("classic_prove", lambda: Marlin.prove(pk, circ, copy.deepcopy(rng_at_prove), device=DEV))
+    torch.cuda.synchronize()
+    rec["classic_launches"] = dict(cuda.LAUNCHES)
+    require(classic.to_bytes() == blob, f"{curve}: the classic route's proof bytes differ from the table route's")
+    require(cuda.LAUNCHES["combine_windows"] == len(seen_c["jobs"]) > 0,
+            f"{curve}: {cuda.LAUNCHES['combine_windows']} combines for {len(seen_c['jobs'])} MSM jobs")
+    require(seen_c["host_calls"] == 0, f"{curve}: the classic prove called the host MSM")
+    rec["classic_bytes_equal"] = True
+    state = {"pk": pk, "vk": vk, "proof": blob, "public": public, "watched": watched, "jobs": seen["jobs"]}
+    return rec, state
+
+
+def curve_cpu_check(torch, curve: str, state: dict, cpu_proof: str) -> dict:
+    """The card's proof against the CPU's reference bytes (`--cpu-proof`),
+    on mixed-radix domains for synthetic_lowadic; a MarlinSonic prove."""
+    from marlin_tpu_torch.ops import ntt
+    from marlin_tpu_torch.snark.marlin import Marlin, MarlinSonic
+    from marlin_tpu_torch.utils.rand import test_rng
+
+    cfg = CURVES[curve]
+    ref = json.load(open(cpu_proof))
+    require(ref["curve"] == curve and ref["log2"] == cfg["cpu_log2"], f"{curve}: the CPU reference is {ref}")
+    rec = {"cpu_log2": cfg["cpu_log2"], "cap": cfg["cap"], "cpu_s": ref["seconds"]}
+    if cfg["cpu_log2"] == cfg["log2"]:
+        card = state["proof"]
+    else:
+        from marlin_tpu_torch.snark.data_structures import Proof
+
+        before = ntt.MIXED_TRANSFORMS["cpu"]
+        with two_adicity_cap(cfg["cap"]):
+            t = time.perf_counter()
+            card, vk, public, rng, pk = prove_bytes_on(DEV, cfg["cpu_log2"])
+            torch.cuda.synchronize()
+            rec["card_s"] = time.perf_counter() - t
+            ok = Marlin.verify(vk, public, Proof.from_bytes(card), rng, device=DEV)
+        h, k = pk.index.domain_h.size, pk.index.domain_k.size
+        rec.update(H=h, K=k)
+        if cfg["cap"] is not None:
+            require(h & (h - 1) and k & (k - 1), f"{curve}: the capped domains {h}, {k} are not both mixed")
+        require(ntt.MIXED_TRANSFORMS["cpu"] == before, f"{curve}: a mixed transform ran on the host")
+        require(ok, f"{curve}: the 2^{cfg['cpu_log2']} card proof does not verify")
+    require(card.hex() == ref["proof"], f"{curve}: the card's proof bytes differ from the CPU's")
+    rec["bytes_equal"] = True
+    if cfg["sonic_log2"]:
+        n = 1 << cfg["sonic_log2"]
+        rng = test_rng()
+        a, b = rng.rand_fr(), rng.rand_fr()
+        circ = DummyCircuit(a, b, num_variables=10, num_constraints=n)
+        t = time.perf_counter()
+        srs = MarlinSonic.universal_setup(n, n, 3 * n, rng, device=DEV)
+        pk, vk = MarlinSonic.index(srs, circ, device=DEV)
+        with counted_msm_calls() as seen, contextlib.redirect_stdout(io.StringIO()):
+            proof = MarlinSonic.prove(pk, circ, rng, device=DEV)
+        torch.cuda.synchronize()
+        from marlin_tpu_torch.fields import active as P
+
+        ok = MarlinSonic.verify(vk, [a * b % P.R_MODULUS], proof, rng, device=DEV)
+        rec["sonic"] = {"num_constraints": n, "seconds": time.perf_counter() - t, "verifies": bool(ok),
+                        "proof_bytes": proof.serialized_size(), "host_msm_calls": seen["host_calls"]}
+        require(ok, f"{curve}: the MarlinSonic proof does not verify")
+        require(seen["host_calls"] == 0, f"{curve}: the MarlinSonic prove called the host MSM")
+    return rec
+
+
+def curve_kernel_rows(curve: str, main_rec: dict, kernels: dict) -> list:
+    """The kernel line's rows of one curve: each kernel's row at the curve's
+    main-path shapes with its launches on that path (the combine's on the
+    classic route's prove)."""
+    rows = []
+    for name, r in kernels.items():
+        if name == "combine_windows":
+            launches = main_rec["classic_launches"]["combine_windows"]
+        elif name == "mont_mul":  # an entry into kernel 1: its Fr products
+            launches = main_rec["binop_launches"].get("fr.mul", 0)
+        else:
+            launches = main_rec["launches"].get(name)
+        rows.append({
+            "name": f"{curve}:{name}", "route": r["route"], "source": r["source"], "replaces": r["replaces"],
+            "launches": launches, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "shape": r.get("shape"),
+        })
+    return rows
+
+
+def curve_process_main(curve: str, cpu_proof: str, out: str) -> int:
+    """`--curve NAME --cpu-proof-file PATH --out PATH`: the curve's phases
+    (build check, main, kernels, cpu) in this process, each printing one
+    JSON line; the kernel rows and every record to PATH."""
+    sys.path.insert(0, ROOT)
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    from marlin_tpu_torch.fields import active as P
+    from marlin_tpu_torch.ops import cuda
+
+    phase = "build"
+    try:
+        require(P.CURVE_NAME == curve, f"MARLIN_TPU_CURVE gives {P.CURVE_NAME}, expected {curve}")
+        global PEAK_OPS_PER_S, FQ_PRODUCT_US
+        sys.path.insert(0, os.path.join(ROOT, "tools"))
+        import imad_rate
+        import sass_count
+
+        secs = cuda.build()
+        require(cuda.lib().marlin_curve_id().decode() == curve, "the library names another curve")
+        sass = sass_count.count(cuda.lib_path())
+        for field in ("fr", "fq"):
+            MULS_PER_PRODUCT[field] = sass["product"][field]["multiplies"]
+        PEAK_OPS_PER_S = integer_peak(torch)["ops_per_s"]
+        latency = {f: imad_rate.product_latency(torch, f) for f in ("fq", "fr")}
+        FQ_PRODUCT_US = latency["fq"]["us_per_product"]
+        emit({"phase": "build", "curve": curve, "seconds": secs, "product_sass": sass["product"],
+              "kernel_sass": sass["kernels"], "product_latency": latency})
+
+        phase = "main"
+        main_rec, state = curve_main(torch, curve)
+        emit({"phase": "main", **main_rec})
+
+        phase = "kernels"
+        pp = state["pk"].committer_key.pp
+        set_curve_shapes(CURVES[curve]["log2"], main_rec["K"], main_rec["prove_inversions"],
+                         main_rec["prove_transforms"], main_rec["prove_msm_jobs"], pp.powers_of_g[0].shape[0])
+        kernels = phase_kernels(torch, np)
+        emit({"phase": "kernels", "curve": curve, "results": kernels})
+
+        phase = "cpu"
+        emit({"phase": "cpu", "curve": curve, **curve_cpu_check(torch, curve, state, cpu_proof)})
+    except Exception as e:
+        import traceback
+
+        traceback.print_exc()
+        print(json.dumps({"phase": phase, "curve": curve, "error": f"{type(e).__name__}: {e}"}), flush=True)
+        _write(out, {"records": RECORDS, "failed_phase": phase, "error": str(e)})
+        return 1
+    _write(out, {"records": RECORDS, "kernels": curve_kernel_rows(curve, main_rec, kernels)})
+    return 0
+
+
+def run_curve(curve: str, cpu: tuple) -> list:
+    """Wait for the curve's CPU reference proof, run the curve's process and
+    relay its lines -> its kernel rows.  Fails the run if either fails."""
+    proc, cpu_out = cpu
+    log, _ = proc.communicate()
+    require(proc.returncode == 0, f"{curve}: the CPU reference proof failed:\n{log[-3000:]}")
+    out = os.path.join(SMOKE_DIR, f"curve_{curve}.json")
+    env = dict(os.environ, MARLIN_TPU_CURVE=curve)
+    env.pop("MARLIN_TPU_FR_TWO_ADICITY_CAP", None)
+    child = subprocess.run([sys.executable, os.path.abspath(__file__), "--curve", curve,
+                            "--cpu-proof-file", cpu_out, "--out", out],
+                           cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for line in child.stdout.splitlines():
+        if line.startswith("{"):
+            rec = json.loads(line)
+            RECORDS.append(rec)
+            print(line, flush=True)
+    require(child.returncode == 0, f"{curve}: the curve's phases failed:\n{child.stdout[-4000:]}")
+    return json.load(open(out))["kernels"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every phase's record to this JSON file")
+    ap.add_argument("--curve", choices=sorted(CURVES), help=argparse.SUPPRESS)
+    ap.add_argument("--cpu-proof", choices=sorted(CURVES), help=argparse.SUPPRESS)
+    ap.add_argument("--cpu-proof-file", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     if not os.path.isdir(os.path.join(ROOT, "marlin_tpu_torch")):
         print("chip_smoke: marlin_tpu_torch/ is not beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    if args.cpu_proof:
+        return cpu_proof_main(args.cpu_proof, args.out)
+    if args.curve:
+        return curve_process_main(args.curve, args.cpu_proof_file, args.out)
+    os.environ["MARLIN_TPU_CURVE"] = "bls12_381"  # this process's phases; the others run their own
     import numpy as np
     import torch
 
@@ -1338,12 +1760,15 @@ def main() -> int:
     count = torch.cuda.device_count()
     smi = nvidia_smi_line()
     phase = "device"
+    cpu_procs = {}
+    curve_rows = []
     try:
         emit({"phase": "device", "kind": kind, "count": count, "nvidia_smi": smi,
               "torch": torch.__version__, "cuda": torch.version.cuda})
 
         phase = "build"
         emit({"phase": "build", **phase_build(torch)})
+        cpu_procs = start_cpu_proofs()
 
         phase = "kernels"
         kernels = phase_kernels(torch, np)
@@ -1369,6 +1794,10 @@ def main() -> int:
 
         phase = "sonic"
         emit({"phase": "sonic", **phase_sonic(torch)})
+
+        for curve in CURVES:
+            phase = curve
+            curve_rows += run_curve(curve, cpu_procs.pop(curve))
     except Exception as e:  # every phase failure ends the run without a result
         import traceback
 
@@ -1377,6 +1806,10 @@ def main() -> int:
         if args.out:
             _write(args.out, {"records": RECORDS, "failed_phase": phase, "error": str(e)})
         return 1
+    finally:
+        for proc, _ in cpu_procs.values():  # reference proofs a failure left running
+            proc.kill()
+            proc.communicate()
 
     fr_mul_launches = main_rec["binop_launches"].get("fr.mul", 0)
     table = []
@@ -1391,8 +1824,9 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
+    table += [{k: v for k, v in row.items() if k != "shape"} for row in curve_rows]
     if args.out:
-        _write(args.out, {"records": RECORDS, "kernels": table, "nvidia_smi": smi})
+        _write(args.out, {"records": RECORDS, "kernels": table, "curve_kernels": curve_rows, "nvidia_smi": smi})
     print(json.dumps({"kernels": table}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

@@ -1,5 +1,6 @@
 // The ladder (kernel 4's scalar multiple) and the window combine (kernel 6)
-// of the BLS12-381 G1 MSMs, as short chains of parallel steps.
+// of the G1 MSMs, as short chains of parallel steps, over the Fq of the
+// curve the library is built for (group.cuh, mont.cuh).
 //
 // scalar_mul_kernel runs the MSB-first double-and-add of
 // marlin_tpu/ops/curve_device.py::scalar_mul_batch (:282), which calls
@@ -17,8 +18,8 @@
 // but the length of one chain of dependent steps on an SM that is almost
 // idle: 255 doublings and about 128 adds a point for the ladder, 250
 // doublings for the last window of the combine at c = 10, W = 26.  One Fq
-// product is one thread's stream of ~376 instructions, most of them
-// IMAD.WIDE with carry, and a warp issues them for all its lanes at once.
+// product is one thread's stream of instructions (~376 at NL = 12), most of
+// them IMAD.WIDE with carry, and a warp issues them for all its lanes at once.
 // The design shortens what a chain waits for:
 // * each formula runs as levels of independent products: dbl-2009-l's 7
 //   products in 3 levels ({X^2, Y^2, Y Z}, {B^2, (X + B)^2, (3A)^2},
@@ -63,7 +64,7 @@ constexpr int kLanes = 4;           // lanes a chain (Chain)
 constexpr int kLadderThreads = 32;  // one warp a block
 constexpr int kCombineMax = 128;    // the most window sums (ops/curve.py COMBINE_MAX)
 constexpr int kCombineGroups = 64;  // lane groups of the combine's block, one or two windows each
-constexpr int kScalarLimbs = 16;    // Fr scalars: 16 limbs of 16 bits
+constexpr int kScalarLimbs = 2 * FrTraits::NL;  // Fr scalars: 16 limbs of 16 bits
 
 // kLanes = 4 lanes a chain: lane k computes product min(k, K - 1) of the level,
 // then every lane takes all K results from their lanes.

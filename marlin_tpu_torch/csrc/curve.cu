@@ -1,6 +1,8 @@
-// Kernels 4 and 5: BLS12-381 G1 Jacobian add and double over Fq, and the
-// bucket fold of the MSMs.  The ladder (kernel 4's scalar_mul) and the
-// window combine (kernel 6) are in chain.cu; the group law is group.cuh.
+// Kernels 4 and 5: the G1 Jacobian add and double over Fq, and the bucket
+// fold of the MSMs, for the curve the library is built for (mont.cuh; Fq of
+// NL = 8 words for BN254, 12 for BLS12-381, BLS12-377 and
+// synthetic_lowadic).  The ladder (kernel 4's scalar_mul) and the window
+// combine (kernel 6) are in chain.cu; the group law is group.cuh.
 //
 // Kernel 4 replaces marlin_tpu/ops/pallas/curve.py::_build (pallas_call at
 // :201) with its _add_kernel / _double_kernel (:158-170): the complete
@@ -11,13 +13,13 @@
 // reduce of the partial sums with the complete add.
 //
 // What bounds them on the H100.  The add reads 6 and writes 3 Fq values
-// (864 B per point in the int32 API layout) for 16 Fq products, the double
-// 6 for 7: near the balance of bytes and integer multiplies at the main
-// path's sizes.  Both stage nothing in registers they do not need, under a
+// (576 B per point in the int32 API layout at NL = 8, 864 B at 12) for 16 Fq
+// products, the double 6 for 7: near the balance of bytes and integer
+// multiplies at the main path's sizes.  Both stage nothing in registers they do not need, under a
 // cap of 128 registers (four blocks of 128 threads an SM).
 //
-// The fold reads one 96-byte packed table row and one 4-byte slot index per
-// filled slot and does 11 Fq products on it: multiply bound, with a random
+// The fold reads one packed table row (8 NL bytes: 64 B at NL = 8, 96 B at
+// 12) and one 4-byte slot index per filled slot and does 11 Fq products on it: multiply bound, with a random
 // gather into a table larger than the L2.  Its design:
 // * each bucket lane is S = 2^log_sub sub-rows (threads) of one warp; S
 //   comes from the fold's shape (ops/curve.py::fold_subrows): 32 for the
@@ -32,9 +34,9 @@
 //   registers between slots; the S partial sums meet through those cells,
 //   log2 S levels of the complete add, row r taking row r + s (the TPU's
 //   row reduce), synchronized by the warp alone;
-// * 4 blocks of 128 threads an SM (110 registers, 43 KB of shared memory
-//   each): the 2^14 prove's largest fold ([1539, 3552], 385 blocks of
-//   four lanes) is one wave.
+// * 4 blocks of 128 threads an SM (110 registers at NL = 12; 43 KB of
+//   shared memory each at NL = 12, 28 KB at 8): the 2^14 prove's largest
+//   fold ([1539, 3552], 385 blocks of four lanes) is one wave.
 // No tensor cores: no product here is a matrix product, and an int8 mma over
 // 381-bit limbs would need limb splitting and carry passes of its own.
 //
@@ -51,12 +53,14 @@ using namespace g1;
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kMinBlocks = 4;  // blocks of kThreads an SM: a cap of 128 registers
 constexpr int kMaxLogSub = 5;  // at most 32 sub-rows: one warp per lane
-constexpr int kRowCells = 6;   // a packed table row: 6 x 16 bytes (X then Y)
-constexpr int kPointCells = 9; // a Jacobian point: 9 x 16 bytes (X, Y, Z)
+constexpr int kCoordCells = NL / 4;           // an Fq value: NL words, 16 bytes a cell
+constexpr int kRowCells = 2 * kCoordCells;    // a packed table row (X then Y)
+constexpr int kPointCells = 3 * kCoordCells;  // a Jacobian point (X, Y, Z)
 
 // Shared memory in columns of 16-byte cells: cell k of thread t at
 // [k * kThreads + t], so a warp's 16-byte accesses to one cell index are
-// conflict-free.  A point is 9 cells (X, Y, Z: 3 each) from `s`.
+// conflict-free.  A point is kPointCells cells from `s`: X, Y and Z of
+// kCoordCells each (3 cells each at NL = 12, 2 at NL = 8).
 __device__ __forceinline__ void load_cells(uint32_t r[NL], const uint4* s, int col, int k0) {
 #pragma unroll
   for (int q = 0; q < NL / 4; q++) {
@@ -75,20 +79,24 @@ struct CellPoint {
   uint4* s;
   int col;
   __device__ __forceinline__ void X(uint32_t r[NL]) const { load_cells(r, s, col, 0); }
-  __device__ __forceinline__ void Y(uint32_t r[NL]) const { load_cells(r, s, col, 3); }
-  __device__ __forceinline__ void Z(uint32_t r[NL]) const { load_cells(r, s, col, 6); }
+  __device__ __forceinline__ void Y(uint32_t r[NL]) const { load_cells(r, s, col, kCoordCells); }
+  __device__ __forceinline__ void Z(uint32_t r[NL]) const { load_cells(r, s, col, 2 * kCoordCells); }
   __device__ __forceinline__ void setX(const uint32_t v[NL]) const { store_cells(s, col, 0, v); }
-  __device__ __forceinline__ void setY(const uint32_t v[NL]) const { store_cells(s, col, 3, v); }
-  __device__ __forceinline__ void setZ(const uint32_t v[NL]) const { store_cells(s, col, 6, v); }
+  __device__ __forceinline__ void setY(const uint32_t v[NL]) const {
+    store_cells(s, col, kCoordCells, v);
+  }
+  __device__ __forceinline__ void setZ(const uint32_t v[NL]) const {
+    store_cells(s, col, 2 * kCoordCells, v);
+  }
 };
 
 struct SlotRow {  // affine (x2, ±y2) of a filled slot: a packed row in shared memory
-  const uint4* s;  // X then Y, 3 cells each
+  const uint4* s;  // X then Y, kCoordCells each
   int col;
   bool neg;
   __device__ __forceinline__ void X(uint32_t r[NL]) const { load_cells(r, s, col, 0); }
   __device__ __forceinline__ void Y(uint32_t r[NL]) const {
-    load_cells(r, s, col, 3);
+    load_cells(r, s, col, kCoordCells);
     if (neg) {
       uint32_t zero[NL];
       fe_set_zero(zero);
@@ -97,8 +105,8 @@ struct SlotRow {  // affine (x2, ±y2) of a filled slot: a packed row in shared 
   }
 };
 
-// The operands go through shared memory (9 cells for p, then 9 for q, in
-// the thread's column) and the results straight to global memory as each
+// The operands go through shared memory (kPointCells cells for p, then as
+// many for q, in the thread's column) and the results straight to global memory as each
 // is final: the formula holds few Fq values and one register of address,
 // under the register cap of four blocks an SM.
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
@@ -117,7 +125,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   for (int c = 0; c < 6; c++) {
     uint32_t v[NL];
     fe_load<NL>(v, src[c]);
-    store_cells(cells, tid, 3 * c, v);
+    store_cells(cells, tid, kCoordCells * c, v);
   }
   jac_add(CellPoint{cells, tid}, CellPoint{cells + kPointCells * kThreads, tid},
           ApiOut{ox + o, oy + o, oz + o});
@@ -174,10 +182,11 @@ __device__ __forceinline__ void fetch_row(uint4* cells, int col, int buf,
 // r + S, ... of its layout row (0 = empty, +k = table row k-1, -k = its
 // negation) into an accumulator that starts at the identity (0, 1, 0);
 // then the S partial sums meet, row r taking row r + s for s = S/2, ..., 1.
-// The table rows are 96 B each (X then Y as 32-bit limbs,
-// ops/curve.py::pack_points_xy).  A thread's column of shared memory holds
-// its two row buffers (cells 0-11) and its accumulator (cells 12-20), which
-// the join reads across the warp.
+// The table rows are 8 NL bytes each (X then Y as 32-bit limbs,
+// ops/curve.py::pack_points_xy: 96 B at NL = 12, 64 B at 8).  A thread's
+// column of shared memory holds its two row buffers (cells 0 to
+// 2 kRowCells - 1: 0-11 at NL = 12, 0-7 at 8) and then its accumulator
+// (kPointCells cells: 12-20, or 8-13), which the join reads across the warp.
 template <bool EXACT>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     fold_kernel(const int32_t* __restrict__ table, const int32_t* __restrict__ layout, int lanes,

@@ -1,5 +1,6 @@
 // Kernels 1 and 2: elementwise field binop (mul / add / sub) and batch
-// inversion over Fr (NL = 8) or Fq (NL = 12).
+// inversion over Fr or Fq of the curve the library is built for (mont.cuh:
+// NL = 8 for every Fr and BN254's Fq, 12 for the other curves' Fq).
 //
 // Kernel 1 replaces marlin_tpu/ops/pallas/field.py::_build_binop (:88, the
 // pallas_call at :101, reached through binop :183); kernel 2 replaces
@@ -28,9 +29,10 @@
 // blocks as fit on the card at once (cudaOccupancy...), each thread taking
 // as many elements as that needs, so a launch runs in one wave.  A zero
 // enters the products as one and comes out as zero (the TPU's 0 -> 0).
-// Both kernels run on the compile-time moduli of mont.cuh (FrTraits for
-// NL = 8, FqTraits for NL = 12); the entries refuse a context whose words
-// do not match.
+// Both kernels run on the compile-time moduli of mont.cuh.  Each entry takes
+// the field explicitly (kFieldFr or kFieldFq: BN254's Fr and Fq have the same
+// width, so the width cannot say which) and refuses a context whose words,
+// field or curve do not match the traits it would run.
 //
 // C interface (ctypes): every entry returns the cudaError_t of its launch.
 
@@ -196,8 +198,7 @@ cudaError_t launch_inv(const int32_t* x, int32_t* out, long long n, cudaStream_t
 
 template <class F>
 cudaError_t launch_binop(int kind, const int32_t* a, const int32_t* b, int32_t* out,
-                         long long n, const ModParams& p, cudaStream_t s) {
-  if (!params_match<F>(p)) return cudaErrorInvalidValue;
+                         long long n, cudaStream_t s) {
   const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
   switch (kind) {
     case 0: binop_kernel<F, 0><<<blocks, kThreads, 0, s>>>(a, b, out, n); break;
@@ -210,27 +211,35 @@ cudaError_t launch_binop(int kind, const int32_t* a, const int32_t* b, int32_t* 
 
 }  // namespace
 
-extern "C" int marlin_field_binop(int kind, int nl, const void* a, const void* b, void* out,
+// field: kFieldFr or kFieldFq.  A context (params) of another field, modulus
+// or curve is refused with cudaErrorInvalidValue before any launch.
+extern "C" int marlin_field_binop(int kind, int field, const void* a, const void* b, void* out,
                                   long long n, const void* params, void* stream) {
   const ModParams p = mod_params_from_words(static_cast<const uint32_t*>(params));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int32_t* pa = static_cast<const int32_t*>(a);
   const int32_t* pb = static_cast<const int32_t*>(b);
   int32_t* po = static_cast<int32_t*>(out);
-  if (n <= 0) return 0;
-  if (nl == 8) return (int)launch_binop<FrTraits>(kind, pa, pb, po, n, p, s);
-  if (nl == 12) return (int)launch_binop<FqTraits>(kind, pa, pb, po, n, p, s);
+  if (field == kFieldFr && params_match<FrTraits>(p, kFieldFr))
+    return n <= 0 ? 0 : (int)launch_binop<FrTraits>(kind, pa, pb, po, n, s);
+  if (field == kFieldFq && params_match<FqTraits>(p, kFieldFq))
+    return n <= 0 ? 0 : (int)launch_binop<FqTraits>(kind, pa, pb, po, n, s);
   return (int)cudaErrorInvalidValue;
 }
 
-extern "C" int marlin_field_inv(int nl, const void* x, void* out, long long n,
+extern "C" int marlin_field_inv(int field, const void* x, void* out, long long n,
                                 const void* params, void* stream) {
   const ModParams p = mod_params_from_words(static_cast<const uint32_t*>(params));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 0) return 0;
   const int32_t* px = static_cast<const int32_t*>(x);
   int32_t* po = static_cast<int32_t*>(out);
-  if (nl == 8 && params_match<FrTraits>(p)) return (int)launch_inv<FrTraits>(px, po, n, s);
-  if (nl == 12 && params_match<FqTraits>(p)) return (int)launch_inv<FqTraits>(px, po, n, s);
+  if (field == kFieldFr && params_match<FrTraits>(p, kFieldFr))
+    return n <= 0 ? 0 : (int)launch_inv<FrTraits>(px, po, n, s);
+  if (field == kFieldFq && params_match<FqTraits>(p, kFieldFq))
+    return n <= 0 ? 0 : (int)launch_inv<FqTraits>(px, po, n, s);
   return (int)cudaErrorInvalidValue;
 }
+
+// The curve this library was compiled for (-DMARLIN_CURVE_<NAME>): ops/cuda.py
+// compares it with the active curve when it loads the library.
+extern "C" const char* marlin_curve_id() { return MARLIN_CURVE_NAME; }

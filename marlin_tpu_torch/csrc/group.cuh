@@ -1,5 +1,5 @@
-// The BLS12-381 G1 group law in Jacobian coordinates over Fq for the
-// kernels of curve.cu (add, double, the bucket fold): dbl-2009-l and the
+// The G1 group law in Jacobian coordinates over Fq (the FqTraits of the
+// curve the library is built for, mont.cuh) for the kernels of curve.cu (add, double, the bucket fold): dbl-2009-l and the
 // complete add-2007-bl with their edge cases, and the fold's mixed add, over
 // the constant-modulus core of mont.cuh.  chain.cu runs the same formulas as
 // levels of independent products and takes its helpers and point accessors
@@ -24,7 +24,7 @@
 namespace g1 {
 
 using Fq = FqTraits;
-constexpr int NL = Fq::NL;  // 12 x 32-bit limbs
+constexpr int NL = Fq::NL;  // 32-bit limbs: 8 (BN254) or 12
 
 template <int N>
 __device__ __forceinline__ bool fe_is_zero(const uint32_t a[N]) {
@@ -44,7 +44,7 @@ __device__ __forceinline__ void fe_set_zero(uint32_t r[NL]) {
 // as soon as it is final, so that few Fq values are live in registers;
 // every read of a coordinate comes before the write of the same coordinate,
 // so a result may overwrite its operand.
-struct ApiPoint {  // global memory, the API layout: 24 int32 words of 16-bit limbs
+struct ApiPoint {  // global memory, the API layout: 2 NL int32 words of 16-bit limbs
   const int32_t* x;
   const int32_t* y;
   const int32_t* z;
@@ -62,7 +62,7 @@ struct ApiOut {
   __device__ __forceinline__ void setZ(const uint32_t v[NL]) const { fe_store<NL>(z, v); }
 };
 
-struct WordPoint {  // X | Y | Z as 36 32-bit limbs (the combine's shared memory)
+struct WordPoint {  // X | Y | Z as 3 NL 32-bit limbs (the combine's shared memory)
   const uint32_t* w;
   __device__ __forceinline__ void X(uint32_t r[NL]) const { copy(r, 0); }
   __device__ __forceinline__ void Y(uint32_t r[NL]) const { copy(r, NL); }

@@ -4,7 +4,8 @@
 // * imad_rate_kernel: the rate of the carry chains of the Montgomery
 //   product (mont.cuh cmad_n: mad.lo.cc / madc.hi.cc pairs, which ptxas
 //   fuses into IMAD.WIDE.U32 with carry) with every SM full: each thread
-//   runs kChains independent 12-word chains, R rows an iteration.  The
+//   runs kChains independent chains of Fq's width (12 words, 8 for BN254), R
+//   rows an iteration.  The
 //   caller counts the multiplies of one row from the SASS of the R = 4 and
 //   R = 8 instances (their difference is four rows), so the rate is in the
 //   same unit as the product counts of the bounds.
@@ -97,16 +98,16 @@ extern "C" int marlin_imad_rate_shape(int* blocks_per_sm, int* threads) {
       blocks_per_sm, (const void*)imad_rate_kernel<8>, kRateThreads, 0);
 }
 
-// nl = 12 (Fq) or 8 (Fr); in: x then y in the API layout (2 nl words each);
-// out: x y^iters; cycles: one word.
-extern "C" int marlin_product_chain(int nl, const void* in, int iters, void* out, void* cycles,
+// field: kFieldFq or kFieldFr; in: x then y in the API layout (2 NL words
+// each); out: x y^iters; cycles: one word.
+extern "C" int marlin_product_chain(int field, const void* in, int iters, void* out, void* cycles,
                                     void* stream) {
-  if ((nl != FqTraits::NL && nl != FrTraits::NL) || iters < 0) return (int)cudaErrorInvalidValue;
+  if ((field != kFieldFq && field != kFieldFr) || iters < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int32_t* pin = static_cast<const int32_t*>(in);
   int32_t* pout = static_cast<int32_t*>(out);
   long long* pc = static_cast<long long*>(cycles);
-  if (nl == FqTraits::NL) {
+  if (field == kFieldFq) {
     product_chain_kernel<FqTraits><<<1, 1, 0, s>>>(pin, iters, pout, pc);
   } else {
     product_chain_kernel<FrTraits><<<1, 1, 0, s>>>(pin, iters, pout, pc);

@@ -6,12 +6,14 @@
 // marlin_tpu/ops/pallas/core.py: mm_mul_cios (:32), _finalize (:158) and
 // mm_add / mm_sub / mm_select (:188-229).  The TPU core works on 16 x 16-bit
 // limbs in u32 lanes because the VPU has no widening multiply; here an element
-// is NL 32-bit limbs (8 for Fr, 12 for Fq).  R stays 2^(32 NL) = 2^256 /
-// 2^384, so the Montgomery residues are the same numbers, and the outputs
-// are canonical (< N) like the TPU's _finalize, so they agree limb for limb.
+// is NL 32-bit limbs: 8 for every curve's Fr, 8 for BN254's Fq and 12 for the
+// other curves' Fq.  R stays 2^(32 NL) = 2^256 / 2^384, so the Montgomery
+// residues are the same numbers, and the outputs are canonical (< N) like
+// the TPU's _finalize, so they agree limb for limb.
 //
 // The modulus is a compile-time constant: a traits struct per field (FqTraits,
-// FrTraits: limbs, -N^{-1} mod 2^32, R mod N) templates every function, so
+// FrTraits of the curve the library is built for: limbs, -N^{-1} mod 2^32,
+// R mod N, R^3 mod N) templates every function, so
 // no modulus limb is ever loaded from memory and none crosses a call; the
 // limbs become immediates of the multiply-adds.  The products are CIOS in
 // the even/odd form of Emmart and Weems (as in the sppark library's mont_t):
@@ -20,33 +22,39 @@
 // lands in two adjacent words of one accumulator and a whole row is one
 // PTX carry chain of mad.lo.cc / madc.hi.cc pairs; each row also adds
 // m N the same way and shifts by one word by swapping the accumulators'
-// roles.  Both moduli leave the top bit of their top limb clear (381 and 255
-// bits).  The odd accumulator's carry out of its top word is kept as a word
-// of its own (it is nonzero only when an operand is not canonical, as in
-// to_mont of a raw 256-bit value); every other carry that the chains drop
-// is zero, and the merged result is below 2N, for a * b < N R (checked word
-// for word by an emulation of these chains against Python integers when
-// this was written, for canonical operands and for one operand below R);
-// the final conditional subtraction keeps every output canonical.  The carry flag lives between `asm volatile` statements, which
-// the compiler keeps in order; no PTX instruction between them touches it.
+// roles.  Every modulus leaves the top bit of its top limb clear (254-381
+// bits in 8 or 12 words; static_assert below).  The odd accumulator's
+// carry out of its top word is kept as a word of its own (it is nonzero
+// only when an operand is not canonical, as in to_mont of a raw 256-bit
+// value); every other carry that the chains drop is zero, and the merged
+// result is below 2N, for a * b < N R (checked word for word by an
+// emulation of these chains against Python integers,
+// tests/test_torch_curves.py, for every curve's Fr and Fq, for canonical
+// operands and for one operand below R); the final conditional
+// subtraction keeps every output canonical.  The carry flag lives between
+// `asm volatile` statements, which the compiler keeps in order; no PTX
+// instruction between them touches it.
 //
 // In global memory an element keeps the package's API layout: 2 NL int32
 // words, each holding one 16-bit limb.  fe_load / fe_store pack and unpack
-// with 16-byte vector accesses (rows are 64 B for Fr and 96 B for Fq).
+// with 16-byte vector accesses (rows are 64 B for 8 words, 96 B for 12).
 
 #pragma once
 #include <cstdint>
 
 #define MARLIN_MAX_NL 12
 
-// The per-modulus words that the Python side passes (ModCtx.kernel_params in
-// marlin_tpu_torch/ops/bigint.py, 25 words).  The kernels compute with the
-// traits below; the host entries of field.cu and ntt.cu check these words
-// against them, so a context that does not match a compiled field is refused.
+// The words that the Python side passes with every launch
+// (ModCtx.kernel_params in marlin_tpu_torch/ops/bigint.py, 27 words).  The
+// kernels compute with the traits below; the host entries of field.cu and
+// ntt.cu check these words against them, so a context that does not match
+// the compiled field of the compiled curve is refused.
 struct ModParams {
   uint32_t n[MARLIN_MAX_NL];    // modulus N
   uint32_t np0;                 // -N^{-1} mod 2^32
   uint32_t one[MARLIN_MAX_NL];  // R mod N (Montgomery one)
+  uint32_t field;               // kFieldFr or kFieldFq
+  uint32_t curve;               // MARLIN_CURVE_ID of the context's curve
 };
 
 static inline ModParams mod_params_from_words(const uint32_t* w) {
@@ -54,10 +62,25 @@ static inline ModParams mod_params_from_words(const uint32_t* w) {
   for (int i = 0; i < MARLIN_MAX_NL; i++) p.n[i] = w[i];
   p.np0 = w[MARLIN_MAX_NL];
   for (int i = 0; i < MARLIN_MAX_NL; i++) p.one[i] = w[MARLIN_MAX_NL + 1 + i];
+  p.field = w[2 * MARLIN_MAX_NL + 1];
+  p.curve = w[2 * MARLIN_MAX_NL + 2];
   return p;
 }
 
-// BLS12-381 base field Fq: N = 0x1a0111ea...ffffaaab (381 bits), R = 2^384.
+// The field a host entry is asked for (its `field` argument).
+enum : uint32_t { kFieldFr = 0, kFieldFq = 1 };
+
+// One pair of traits, FqTraits (the base field of G1) and FrTraits (the
+// scalar field), for the curve chosen at compile time by -DMARLIN_CURVE_<NAME>
+// (ops/cuda.py builds one library per curve).  MARLIN_CURVE_NAME is what the
+// library's marlin_curve_id entry returns; MARLIN_CURVE_ID the number that
+// ModParams.curve must carry (ops/cuda.py CURVE_IDS).  The constants are
+// those of marlin_tpu_torch/fields/<curve>.py (tests/test_torch_curves.py
+// recomputes every one from there).
+#if defined(MARLIN_CURVE_BLS12_381)
+#define MARLIN_CURVE_NAME "bls12_381"
+#define MARLIN_CURVE_ID 1
+// BLS12-381 base field Fq (381 bits), R = 2^384.
 struct FqTraits {
   static constexpr int NL = 12;
   static constexpr int BITS = 381;
@@ -67,7 +90,7 @@ struct FqTraits {
       case 0: return 0xffffaaabu;  case 1: return 0xb9feffffu;  case 2: return 0xb153ffffu;
       case 3: return 0x1eabfffeu;  case 4: return 0xf6b0f624u;  case 5: return 0x6730d2a0u;
       case 6: return 0xf38512bfu;  case 7: return 0x64774b84u;  case 8: return 0x434bacd7u;
-      case 9: return 0x4b1ba7b6u;  case 10: return 0x397fe69au; default: return 0x1a0111eau;
+      case 9: return 0x4b1ba7b6u;  case 10: return 0x397fe69au;  default: return 0x1a0111eau;
     }
   }
   __host__ __device__ static constexpr uint32_t one(int j) {
@@ -75,7 +98,7 @@ struct FqTraits {
       case 0: return 0x0002fffdu;  case 1: return 0x76090000u;  case 2: return 0xc40c0002u;
       case 3: return 0xebf4000bu;  case 4: return 0x53c758bau;  case 5: return 0x5f489857u;
       case 6: return 0x70525745u;  case 7: return 0x77ce5853u;  case 8: return 0xa256ec6du;
-      case 9: return 0x5c071a97u;  case 10: return 0xfa80e493u; default: return 0x15f65ec3u;
+      case 9: return 0x5c071a97u;  case 10: return 0xfa80e493u;  default: return 0x15f65ec3u;
     }
   }
   // R^3 mod N: a Montgomery product by it multiplies by R^2
@@ -84,12 +107,12 @@ struct FqTraits {
       case 0: return 0xd94ca1e0u;  case 1: return 0xed48ac6bu;  case 2: return 0x03a7adf8u;
       case 3: return 0x315f831eu;  case 4: return 0x615e29ddu;  case 5: return 0x9a53352au;
       case 6: return 0x921e1761u;  case 7: return 0x34c04e5eu;  case 8: return 0x65724728u;
-      case 9: return 0x2512d435u;  case 10: return 0x91755d4du; default: return 0x0aa63460u;
+      case 9: return 0x2512d435u;  case 10: return 0x91755d4du;  default: return 0x0aa63460u;
     }
   }
 };
 
-// BLS12-381 scalar field Fr: N = 0x73eda753...00000001 (255 bits), R = 2^256.
+// BLS12-381 scalar field Fr (255 bits), R = 2^256.
 struct FrTraits {
   static constexpr int NL = 8;
   static constexpr int BITS = 255;
@@ -108,6 +131,7 @@ struct FrTraits {
       case 6: return 0xacc5056fu;  default: return 0x1824b159u;
     }
   }
+  // R^3 mod N: a Montgomery product by it multiplies by R^2
   __host__ __device__ static constexpr uint32_t r3(int j) {
     switch (j) {
       case 0: return 0x439b73afu;  case 1: return 0xc62c1807u;  case 2: return 0x8cf06990u;
@@ -116,14 +140,208 @@ struct FrTraits {
     }
   }
 };
+#elif defined(MARLIN_CURVE_BN254)
+#define MARLIN_CURVE_NAME "bn254"
+#define MARLIN_CURVE_ID 2
+// BN254 base field Fq (254 bits), R = 2^256.
+struct FqTraits {
+  static constexpr int NL = 8;
+  static constexpr int BITS = 254;
+  static constexpr uint32_t NP0 = 0xe4866389u;
+  __host__ __device__ static constexpr uint32_t n(int j) {
+    switch (j) {
+      case 0: return 0xd87cfd47u;  case 1: return 0x3c208c16u;  case 2: return 0x6871ca8du;
+      case 3: return 0x97816a91u;  case 4: return 0x8181585du;  case 5: return 0xb85045b6u;
+      case 6: return 0xe131a029u;  default: return 0x30644e72u;
+    }
+  }
+  __host__ __device__ static constexpr uint32_t one(int j) {
+    switch (j) {
+      case 0: return 0xc58f0d9du;  case 1: return 0xd35d438du;  case 2: return 0xf5c70b3du;
+      case 3: return 0x0a78eb28u;  case 4: return 0x7879462cu;  case 5: return 0x666ea36fu;
+      case 6: return 0x9a07df2fu;  default: return 0x0e0a77c1u;
+    }
+  }
+  // R^3 mod N: a Montgomery product by it multiplies by R^2
+  __host__ __device__ static constexpr uint32_t r3(int j) {
+    switch (j) {
+      case 0: return 0xda1530dfu;  case 1: return 0xb1cd6dafu;  case 2: return 0xa7283db6u;
+      case 3: return 0x62f210e6u;  case 4: return 0x0ada0afbu;  case 5: return 0xef7f0b0cu;
+      case 6: return 0x2d592544u;  default: return 0x20fd6e90u;
+    }
+  }
+};
 
+// BN254 scalar field Fr (254 bits), R = 2^256.
+struct FrTraits {
+  static constexpr int NL = 8;
+  static constexpr int BITS = 254;
+  static constexpr uint32_t NP0 = 0xefffffffu;
+  __host__ __device__ static constexpr uint32_t n(int j) {
+    switch (j) {
+      case 0: return 0xf0000001u;  case 1: return 0x43e1f593u;  case 2: return 0x79b97091u;
+      case 3: return 0x2833e848u;  case 4: return 0x8181585du;  case 5: return 0xb85045b6u;
+      case 6: return 0xe131a029u;  default: return 0x30644e72u;
+    }
+  }
+  __host__ __device__ static constexpr uint32_t one(int j) {
+    switch (j) {
+      case 0: return 0x4ffffffbu;  case 1: return 0xac96341cu;  case 2: return 0x9f60cd29u;
+      case 3: return 0x36fc7695u;  case 4: return 0x7879462eu;  case 5: return 0x666ea36fu;
+      case 6: return 0x9a07df2fu;  default: return 0x0e0a77c1u;
+    }
+  }
+  // R^3 mod N: a Montgomery product by it multiplies by R^2
+  __host__ __device__ static constexpr uint32_t r3(int j) {
+    switch (j) {
+      case 0: return 0xb4bf0040u;  case 1: return 0x5e94d8e1u;  case 2: return 0x1cfbb6b8u;
+      case 3: return 0x2a489cbeu;  case 4: return 0xa19fcfedu;  case 5: return 0x893cc664u;
+      case 6: return 0x7fcc657cu;  default: return 0x0cf8594bu;
+    }
+  }
+};
+#elif defined(MARLIN_CURVE_BLS12_377)
+#define MARLIN_CURVE_NAME "bls12_377"
+#define MARLIN_CURVE_ID 3
+// BLS12-377 base field Fq (377 bits), R = 2^384.
+struct FqTraits {
+  static constexpr int NL = 12;
+  static constexpr int BITS = 377;
+  static constexpr uint32_t NP0 = 0xffffffffu;
+  __host__ __device__ static constexpr uint32_t n(int j) {
+    switch (j) {
+      case 0: return 0x00000001u;  case 1: return 0x8508c000u;  case 2: return 0x30000000u;
+      case 3: return 0x170b5d44u;  case 4: return 0xba094800u;  case 5: return 0x1ef3622fu;
+      case 6: return 0x00f5138fu;  case 7: return 0x1a22d9f3u;  case 8: return 0x6ca1493bu;
+      case 9: return 0xc63b05c0u;  case 10: return 0x17c510eau;  default: return 0x01ae3a46u;
+    }
+  }
+  __host__ __device__ static constexpr uint32_t one(int j) {
+    switch (j) {
+      case 0: return 0xffffff68u;  case 1: return 0x02cdffffu;  case 2: return 0x7fffffb1u;
+      case 3: return 0x51409f83u;  case 4: return 0x8a7d3ff2u;  case 5: return 0x9f7db3a9u;
+      case 6: return 0x6e7c6305u;  case 7: return 0x7b4e97b7u;  case 8: return 0x803c84e8u;
+      case 9: return 0x4cf495bfu;  case 10: return 0xe2fdf49au;  default: return 0x008d6661u;
+    }
+  }
+  // R^3 mod N: a Montgomery product by it multiplies by R^2
+  __host__ __device__ static constexpr uint32_t r3(int j) {
+    switch (j) {
+      case 0: return 0x8815de20u;  case 1: return 0x581f532fu;  case 2: return 0xbe329585u;
+      case 3: return 0xe50f4148u;  case 4: return 0x0449f513u;  case 5: return 0x2be8b118u;
+      case 6: return 0xc804a20eu;  case 7: return 0x6a2a9516u;  case 8: return 0x13590cb9u;
+      case 9: return 0x3f725407u;  case 10: return 0xc0e7dda5u;  default: return 0x01065ab4u;
+    }
+  }
+};
+
+// BLS12-377 scalar field Fr (253 bits), R = 2^256.
+struct FrTraits {
+  static constexpr int NL = 8;
+  static constexpr int BITS = 253;
+  static constexpr uint32_t NP0 = 0xffffffffu;
+  __host__ __device__ static constexpr uint32_t n(int j) {
+    switch (j) {
+      case 0: return 0x00000001u;  case 1: return 0x0a118000u;  case 2: return 0xd0000001u;
+      case 3: return 0x59aa76feu;  case 4: return 0x5c37b001u;  case 5: return 0x60b44d1eu;
+      case 6: return 0x9a2ca556u;  default: return 0x12ab655eu;
+    }
+  }
+  __host__ __device__ static constexpr uint32_t one(int j) {
+    switch (j) {
+      case 0: return 0xfffffff3u;  case 1: return 0x7d1c7fffu;  case 2: return 0x6ffffff2u;
+      case 3: return 0x7257f50fu;  case 4: return 0x512c0feeu;  case 5: return 0x16d81575u;
+      case 6: return 0x2bbb9a9du;  default: return 0x0d4bda32u;
+    }
+  }
+  // R^3 mod N: a Montgomery product by it multiplies by R^2
+  __host__ __device__ static constexpr uint32_t r3(int j) {
+    switch (j) {
+      case 0: return 0x0f65454cu;  case 1: return 0x6a4295c9u;  case 2: return 0xae271699u;
+      case 3: return 0x624d23ffu;  case 4: return 0xf1c9d713u;  case 5: return 0xb1e55ef6u;
+      case 6: return 0x55c48ddau;  default: return 0x0601dfa5u;
+    }
+  }
+};
+#elif defined(MARLIN_CURVE_SYNTHETIC_LOWADIC)
+#define MARLIN_CURVE_NAME "synthetic_lowadic"
+#define MARLIN_CURVE_ID 4
+// synthetic_lowadic base field Fq (381 bits), R = 2^384.
+struct FqTraits {
+  static constexpr int NL = 12;
+  static constexpr int BITS = 381;
+  static constexpr uint32_t NP0 = 0x7968afffu;
+  __host__ __device__ static constexpr uint32_t n(int j) {
+    switch (j) {
+      case 0: return 0xf268b001u;  case 1: return 0x150eb3efu;  case 2: return 0x0ff020d3u;
+      case 3: return 0x5b235a47u;  case 4: return 0x26b8fa7fu;  case 5: return 0x35a03206u;
+      case 6: return 0x5b03e863u;  case 7: return 0xa958dcf8u;  case 8: return 0x8604c111u;
+      case 9: return 0x21c17dedu;  case 10: return 0x50d516ccu;  default: return 0x1a0111eau;
+    }
+  }
+  __host__ __device__ static constexpr uint32_t one(int j) {
+    switch (j) {
+      case 0: return 0x7a51cff7u;  case 1: return 0x427bac90u;  case 2: return 0x708ed894u;
+      case 3: return 0xcbc1d380u;  case 4: return 0xa37f3185u;  case 5: return 0x1d5e3dc8u;
+      case 6: return 0xccdcd483u;  case 7: return 0x0be03b44u;  case 8: return 0x49d53661u;
+      case 9: return 0xd03292a6u;  case 10: return 0x288232d2u;  default: return 0x15f65ec3u;
+    }
+  }
+  // R^3 mod N: a Montgomery product by it multiplies by R^2
+  __host__ __device__ static constexpr uint32_t r3(int j) {
+    switch (j) {
+      case 0: return 0xbdd3523du;  case 1: return 0x8cc196b0u;  case 2: return 0x32d2a0ecu;
+      case 3: return 0x6ff91b6au;  case 4: return 0x539cd9d4u;  case 5: return 0x54545032u;
+      case 6: return 0xc7cdc26eu;  case 7: return 0x8dc0d483u;  case 8: return 0xd6564d3au;
+      case 9: return 0xc9ed7eccu;  case 10: return 0x5fb3dd7fu;  default: return 0x1845aee7u;
+    }
+  }
+};
+
+// synthetic_lowadic scalar field Fr (255 bits), R = 2^256.
+struct FrTraits {
+  static constexpr int NL = 8;
+  static constexpr int BITS = 255;
+  static constexpr uint32_t NP0 = 0xb7d15fffu;
+  __host__ __device__ static constexpr uint32_t n(int j) {
+    switch (j) {
+      case 0: return 0x9bd16001u;  case 1: return 0x812ac7edu;  case 2: return 0x64dae870u;
+      case 3: return 0xb74d4ad6u;  case 4: return 0xc945041cu;  case 5: return 0x08b6697au;
+      case 6: return 0x6ef610c5u;  default: return 0x73eda753u;
+    }
+  }
+  __host__ __device__ static constexpr uint32_t one(int j) {
+    switch (j) {
+      case 0: return 0xc85d3ffeu;  case 1: return 0xfdaa7024u;  case 2: return 0x364a2f1eu;
+      case 3: return 0x91656a53u;  case 4: return 0x6d75f7c6u;  case 5: return 0xee932d0au;
+      case 6: return 0x2213de75u;  default: return 0x1824b159u;
+    }
+  }
+  // R^3 mod N: a Montgomery product by it multiplies by R^2
+  __host__ __device__ static constexpr uint32_t r3(int j) {
+    switch (j) {
+      case 0: return 0xeb1bc5cfu;  case 1: return 0xf6f80df4u;  case 2: return 0x287a404eu;
+      case 3: return 0x6c75149du;  case 4: return 0xc59b6817u;  case 5: return 0x111cb4ebu;
+      case 6: return 0xe284e87au;  default: return 0x73d554b3u;
+    }
+  }
+};
+#else
+#error "define the curve: -DMARLIN_CURVE_BLS12_381, _BN254, _BLS12_377 or _SYNTHETIC_LOWADIC"
+#endif
+
+// The even/odd product and the binary inversion below keep a spare top bit
+// in the modulus's top word, so that a sum of two canonical values fits.
 static_assert(FqTraits::n(FqTraits::NL - 1) < 0x80000000u, "Fq needs a spare top bit");
 static_assert(FrTraits::n(FrTraits::NL - 1) < 0x80000000u, "Fr needs a spare top bit");
+static_assert(FqTraits::NL <= MARLIN_MAX_NL && FrTraits::NL <= MARLIN_MAX_NL, "limbs past MARLIN_MAX_NL");
+static_assert(FqTraits::NL % 4 == 0 && FrTraits::NL % 4 == 0, "elements of whole 16-byte cells");
 
-// Whether the words from the Python side describe the compiled field F.
+// Whether the words from the Python side describe field FIELD of the
+// compiled curve, whose traits are F.
 template <class F>
-static inline bool params_match(const ModParams& p) {
-  bool ok = p.np0 == F::NP0;
+static inline bool params_match(const ModParams& p, uint32_t field) {
+  bool ok = p.np0 == F::NP0 && p.field == field && p.curve == MARLIN_CURVE_ID;
   for (int j = 0; j < MARLIN_MAX_NL; j++) {
     const bool in = j < F::NL;
     ok = ok && p.n[j] == (in ? F::n(j) : 0u) && p.one[j] == (in ? F::one(j) : 0u);

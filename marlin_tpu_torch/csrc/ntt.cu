@@ -1,5 +1,7 @@
-// Kernel 3: radix-2 decimation-in-time NTT stages over Fr, batched over any
-// number of equal-size transforms laid end to end.
+// Kernel 3: radix-2 decimation-in-time NTT stages over Fr (8 words for every
+// curve of the port), batched over any number of equal-size transforms laid
+// end to end.  A mixed-radix transform of 3^s 2^k points (ops/ntt.py) runs
+// its 3^s inner radix-2 transforms of 2^k points as one such batch.
 //
 // Replaces marlin_tpu/ops/pallas/ntt.py::_build / _stages_kernel (:91 / :48,
 // reached through fused_stages :101), which runs the first log2(B) stages
@@ -234,7 +236,7 @@ extern "C" int marlin_ntt_block_stages(const void* x, void* y, long long total, 
   if (log_b < 1 || log_b > kMaxLogB || log_n < log_b || log_n > 30 || total <= 0 ||
       (total & ((1LL << log_n) - 1)))
     return (int)cudaErrorInvalidValue;
-  if (!params_match<F>(mod_params_from_words(static_cast<const uint32_t*>(params))))
+  if (!params_match<F>(mod_params_from_words(static_cast<const uint32_t*>(params)), kFieldFr))
     return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -269,7 +271,7 @@ extern "C" int marlin_ntt_block_stages(const void* x, void* y, long long total, 
 extern "C" int marlin_ntt_cross_stage(void* x, long long total, int s, const void* tw,
                                       const void* params, void* stream) {
   if (s < 0 || total <= 0 || (total & ((2LL << s) - 1))) return (int)cudaErrorInvalidValue;
-  if (!params_match<F>(mod_params_from_words(static_cast<const uint32_t*>(params))))
+  if (!params_match<F>(mod_params_from_words(static_cast<const uint32_t*>(params)), kFieldFr))
     return (int)cudaErrorInvalidValue;
   const long long half_total = total / 2;
   const unsigned blocks = (unsigned)((half_total + kThreads - 1) / kThreads);

@@ -478,3 +478,33 @@ def multi_pairing(pairs) -> bool:
     for p, q in pairs:
         f = fq12_mul(f, miller_loop(p, q))
     return final_exponentiation(f) == FQ12_ONE
+    return final_exponentiation(f) == FQ12_ONE
+
+
+# --- Non-BLS dispatch --------------------------------------------------------
+# Everything above the Fq2 layer in this module is specialised to the
+# BLS12-381 tower/ate loop (xi = 1+u, the x-ate structure, the M-twist psi).
+# Other active curves route through the config-driven engine
+# (fields/pairing_generic.py), which shares none of those assumptions.
+
+if getattr(P, "CURVE_NAME", "bls12_381") != "bls12_381":
+    from .pairing_generic import GenericPairing as _GP
+
+    _ENGINE = _GP(P)
+
+    def miller_loop(p_affine, q_affine):  # noqa: F811
+        if p_affine is None or q_affine is None:
+            return _ENGINE.tw.ONE
+        return _ENGINE.miller_loop(q_affine, p_affine)
+
+    def final_exponentiation(f):  # noqa: F811
+        return _ENGINE.tw.pow(f, _ENGINE.final_exp)
+
+    def pairing(p_affine, q_affine):  # noqa: F811
+        return _ENGINE.pairing(p_affine, q_affine)
+
+    def multi_pairing(pairs) -> bool:  # noqa: F811
+        f = _ENGINE.tw.ONE
+        for p, q in pairs:
+            f = _ENGINE.tw.mul(f, miller_loop(p, q))
+        return final_exponentiation(f) == _ENGINE.tw.ONE

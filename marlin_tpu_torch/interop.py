@@ -11,7 +11,9 @@ limb arrays as int32 tensors on the requested device.
 Limb arrays keep their layout (`[n, L]` 16-bit Montgomery limbs), so the
 state crosses over unchanged: proving from it gives the same proof bytes.
 Keys of either PC scheme cross: a Sonic verifier key is told apart by its
-`neg_h_powers`, and a Sonic SRS carries its negative G2 powers.
+`neg_h_powers`, and a Sonic SRS carries its negative G2 powers.  Both
+packages must run the same curve (`MARLIN_TPU_CURVE`); an SRS whose Fq
+width is not the active curve's is refused.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .ops import fq
 from .ops.sparse import CooMatrix
 from .snark import kzg, sonic
 from .snark.constraint_systems import MatrixArithmetization, MatrixEvals
@@ -66,8 +69,13 @@ def _affine(p):
 
 
 def universal_params(d: dict, device) -> kzg.UniversalParams:
-    """SRS from plain data (the fields of `kzg.UniversalParams`)."""
+    """SRS from plain data (the fields of `kzg.UniversalParams`) of the
+    active curve: its G1 powers must have the curve's Fq width (fq.L limbs:
+    24, or 16 for BN254); G2 points are pairs over the curve's Fq2."""
     device = torch.device(device)
+    width = np.asarray(d["powers_of_g"][0]).shape[-1]
+    if width != fq.L:
+        raise ValueError(f"an SRS of {width}-limb Fq, but the active curve's Fq has {fq.L} limbs")
     host_gamma = d.get("host_gamma_powers")
     neg_h = d.get("neg_powers_of_h")
     return kzg.UniversalParams(

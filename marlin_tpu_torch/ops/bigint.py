@@ -3,7 +3,8 @@ wrappers of the CUDA field kernels.
 
 Elements are `[..., L]` int32 tensors of base-2^16 limbs in Montgomery
 form (R = 2^(16 L)), the JAX package's layout (`marlin_tpu/ops/bigint.py`).
-The same functions serve Fr (L=16) and Fq (L=24) through a `ModCtx`.
+The same functions serve Fr (L=16) and Fq (L=16 for BN254, 24 for the
+other curves) through a `ModCtx`.
 
 Two implementations of each field op live here:
 
@@ -37,11 +38,15 @@ _MAX_NL32 = 12  # csrc/mont.cuh MARLIN_MAX_NL
 
 @dataclass(frozen=True)
 class ModCtx:
-    """Static per-modulus context."""
+    """Static per-modulus context: the field ("fr" or "fq"), its modulus,
+    its limb count and the curve it belongs to.  The kernels take the field
+    and the curve from `kernel_params` and refuse a context that is not the
+    one they were compiled for."""
 
     name: str
     modulus: int
     L: int  # number of 16-bit limbs; R = 2^(16 L)
+    curve: str | None = None  # fields/<curve>.py; None: no compiled curve
 
     @property
     def R(self) -> int:
@@ -75,10 +80,16 @@ class ModCtx:
     def canonical_one_limbs(self) -> np.ndarray:
         return int_to_limbs(1, self.L)
 
+    @property
+    def field_id(self) -> int:
+        """The `field` argument of the kernel entries (kFieldFr, kFieldFq)."""
+        return cuda.FIELD_IDS[self.name]
+
     @functools.cached_property
     def kernel_params(self) -> np.ndarray:
-        """`ModParams` of csrc/mont.cuh: n[12], np0, one[12] — the modulus,
-        -N^{-1} mod 2^32 and R mod N as 32-bit limbs."""
+        """`ModParams` of csrc/mont.cuh: n[12], np0, one[12], field, curve —
+        the modulus, -N^{-1} mod 2^32 and R mod N as 32-bit limbs, then the
+        field's and the curve's numbers (0 for a curve without kernels)."""
         nl = self.L // 2
         assert nl <= _MAX_NL32
 
@@ -86,6 +97,7 @@ class ModCtx:
             return [(x >> (32 * i)) & 0xFFFFFFFF for i in range(_MAX_NL32)]
 
         out = words(self.modulus) + [pow(-self.modulus, -1, 1 << 32)] + words(self.mont_one)
+        out += [self.field_id, cuda.CURVE_IDS.get(self.curve, 0)]
         return np.asarray(out, dtype=np.uint32)
 
     def const(self, which: str, device) -> torch.Tensor:
@@ -245,6 +257,7 @@ def inv_mod(ctx: ModCtx, x: torch.Tensor) -> torch.Tensor:
 # kernel wrappers (csrc/field.cu)
 
 BINOP_KIND = {"mul": 0, "add": 1, "sub": 2}
+PLAIN_OPS = {"mul": mont_mul, "add": add_mod, "sub": sub_mod}
 
 
 def _kernel_operand(t: torch.Tensor, shape) -> torch.Tensor:
@@ -272,7 +285,7 @@ def binop_kernel(kind: str, ctx: ModCtx, a: torch.Tensor, b: torch.Tensor) -> to
         return out
     params = ctx.kernel_params
     err = cuda.lib().marlin_field_binop(
-        BINOP_KIND[kind], ctx.L // 2, a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
+        BINOP_KIND[kind], ctx.field_id, a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
         params.ctypes.data_as(ctypes.c_void_p), cuda.stream_handle(out),
     )
     cuda.LAUNCHES["field_binop"] += 1
@@ -293,7 +306,7 @@ def inv_kernel(ctx: ModCtx, x: torch.Tensor) -> torch.Tensor:
         return out
     params = ctx.kernel_params
     err = cuda.lib().marlin_field_inv(
-        ctx.L // 2, x.data_ptr(), out.data_ptr(), n,
+        ctx.field_id, x.data_ptr(), out.data_ptr(), n,
         params.ctypes.data_as(ctypes.c_void_p), cuda.stream_handle(out),
     )
     cuda.LAUNCHES["field_inv"] += 1
@@ -318,38 +331,37 @@ def from_mont(ctx: ModCtx, x: torch.Tensor) -> torch.Tensor:
     return routing.binop("mul", ctx, x, ctx.const("canonical_one", x.device))
 
 
-def reduce_wide(ctx: ModCtx, t: torch.Tensor) -> torch.Tensor:
+def reduce_wide(ctx: ModCtx, t: torch.Tensor, plain: bool = False) -> torch.Tensor:
     """Redundant int64 limbs [.., M] (non-negative, value < N·R) -> value
     mod N as canonical [.., L] limbs.
 
     With t = lo + hi·R (hi < N): t mod N = lo·R·R^-1 + hi·R²·R^-1, i.e.
-    two Montgomery products (by R mod N and by R² mod N) and one add."""
+    two Montgomery products (by R mod N and by R² mod N) and one add, routed
+    by device, or the plain versions on any device with `plain`."""
     from . import routing
+
+    def op(kind, a, b):
+        return PLAIN_OPS[kind](ctx, a, b) if plain else routing.binop(kind, ctx, a, b)
 
     L = ctx.L
     t = normalize(t, 2 * L)
     lo = t[..., :L].to(LIMB_DTYPE).contiguous()
     hi = t[..., L:].to(LIMB_DTYPE).contiguous()
     dev = t.device
-    return routing.binop(
-        "add",
-        ctx,
-        routing.binop("mul", ctx, lo, ctx.const("one", dev)),
-        routing.binop("mul", ctx, hi, ctx.const("r2", dev)),
-    )
+    return op("add", op("mul", lo, ctx.const("one", dev)), op("mul", hi, ctx.const("r2", dev)))
 
 
-def modsum(ctx: ModCtx, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+def modsum(ctx: ModCtx, x: torch.Tensor, dim: int = 0, plain: bool = False) -> torch.Tensor:
     """Field sum along `dim` of normalized limbs -> canonical limbs.
 
     Limbs are summed exactly in int64 (exact to ~2^47 terms), then reduced
-    once."""
+    once (`reduce_wide`, with `plain` as there)."""
     if x.shape[dim] == 0:
         shape = list(x.shape)
         del shape[dim]
         return torch.zeros(shape, dtype=LIMB_DTYPE, device=x.device)
     s = x.to(torch.int64).sum(dim=dim)
-    return reduce_wide(ctx, s)
+    return reduce_wide(ctx, s, plain)
 
 
 def select(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

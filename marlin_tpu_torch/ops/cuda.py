@@ -1,10 +1,16 @@
 """Build, load and launch the hand-written CUDA kernels (csrc/*.cu).
 
-The sources are compiled at first use with `nvcc` for `sm_90a` into
-`marlin_tpu_torch/build/libmarlin_cuda.so`, which has a plain C interface
-and is loaded with ctypes: one `nvcc -c` per source, all started together,
-then one link.  Nothing is built when the package is imported, and nothing
-here is reached for CPU tensors.
+The kernels compute with compile-time moduli (csrc/mont.cuh), so the
+sources are compiled once per curve, with `-DMARLIN_CURVE_<NAME>`, for
+`sm_90a` into `marlin_tpu_torch/build/<curve>/libmarlin_cuda.so`, which has
+a plain C interface and is loaded with ctypes.  `lib()` builds and loads
+the library of the active curve (`fields.active`, chosen by
+`MARLIN_TPU_CURVE`) at first use and refuses a library whose
+`marlin_curve_id` names another curve.  `build(curves)` compiles several
+curves' libraries at once: one `nvcc -c` per source and curve, all started
+together, then one link each.  Nothing is built when the package is
+imported, and nothing here is reached for CPU tensors.  A build or launch
+failure raises; nothing falls back.
 
 Every kernel entry returns the `cudaError_t` of its launch; `check` raises
 on a nonzero code.  Each kernel keeps a launch counter in `LAUNCHES`,
@@ -25,17 +31,38 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _SOURCES = ("field.cu", "ntt.cu", "curve.cu", "chain.cu", "imad.cu")
 _HEADERS = ("mont.cuh", "group.cuh")
-_BUILD_DIR = os.path.join(_PKG, "build")
-_SO = os.path.join(_BUILD_DIR, "libmarlin_cuda.so")
+_BUILD_ROOT = os.path.join(_PKG, "build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# the curves csrc/mont.cuh has traits for, and the number each context
+# carries in its kernel_params (ModParams.curve, MARLIN_CURVE_ID)
+CURVE_IDS = {"bls12_381": 1, "bn254": 2, "bls12_377": 3, "synthetic_lowadic": 4}
+# the field a host entry is asked for (csrc/mont.cuh kFieldFr, kFieldFq)
+FIELD_IDS = {"fr": 0, "fq": 1}
 # per-source flags.  curve.cu: ptxas's default (-O3) schedule interleaves the
 # group law's independent Fq products and then spills under the register cap
 # of four blocks an SM; its -O1 schedule keeps them in order (72-162
-# registers, no spill) at the same speed on the H100 (PERF.md, PR 4).
-# chain.cu (the ladder and the window combine) takes ptxas's default -O3 and
-# no register cap: its kernels hold a point and a level's operands in
-# registers (155-186 of them, no spill; PERF.md §6).
+# registers at 12-word Fq, no spill) at the same speed on the H100
+# (PERF.md).  chain.cu (the ladder and the window combine) takes ptxas's default
+# -O3 and no register cap: its kernels hold a point and a level's operands
+# in registers (155-186 of them at 12-word Fq, no spill; PERF.md §6).  The
+# build records every kernel's registers and spills per curve
+# (build/<curve>/<source>.ptxas.txt; chip_smoke.py fails on a spill).
 _SOURCE_FLAGS = {"curve.cu": ["-Xptxas", "-O1"]}
+
+
+def active_curve() -> str:
+    from ..fields import active as P
+
+    return P.CURVE_NAME
+
+
+def build_dir(curve: str | None = None) -> str:
+    return os.path.join(_BUILD_ROOT, curve or active_curve())
+
+
+def lib_path(curve: str | None = None) -> str:
+    return os.path.join(build_dir(curve), "libmarlin_cuda.so")
+
 
 # kernel name -> launches since the last reset_launches()
 LAUNCHES: dict[str, int] = {
@@ -58,9 +85,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _SIGNATURES = {
-    # (kind, nl, a, b, out, n, params, stream)
+    # (kind, field, a, b, out, n, params, stream)
     "marlin_field_binop": [_I, _I, _P, _P, _P, _LL, _P, _P],
-    # (nl, x, out, n, params, stream)
+    # (field, x, out, n, params, stream)
     "marlin_field_inv": [_I, _P, _P, _LL, _P, _P],
     # (x, y, total, log_n, log_b, twiddles, scale, params, stream)
     "marlin_ntt_block_stages": [_P, _P, _LL, _I, _I, _P, _P, _P, _P],
@@ -83,7 +110,7 @@ _SIGNATURES = {
     "marlin_imad_rate": [_I, _P, _I, _I, _P, _P, _P],
     # (*blocks_per_sm, *threads)
     "marlin_imad_rate_shape": [_P, _P],
-    # (nl, in, iters, out, cycles, stream)
+    # (field, in, iters, out, cycles, stream)
     "marlin_product_chain": [_I, _P, _I, _P, _P, _P],
 }
 
@@ -104,58 +131,80 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _stale() -> bool:
-    if not os.path.exists(_SO):
+def _stale(curve: str) -> bool:
+    so = lib_path(curve)
+    if not os.path.exists(so):
         return True
-    built = os.path.getmtime(_SO)
+    built = os.path.getmtime(so)
     return any(
         os.path.getmtime(os.path.join(_CSRC, f)) > built for f in _SOURCES + _HEADERS
     )
 
 
-def build() -> float:
-    """Compile the kernels (if the library is missing or stale); -> seconds."""
+def build(curves=None) -> float:
+    """Compile the kernel library of each curve (the active one by default)
+    whose library is missing or stale, every source of every curve in one
+    parallel round of `nvcc`; -> seconds."""
     start = time.perf_counter()
-    if _stale():
-        nvcc = _nvcc()
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as tmp:
-            objs, procs = [], []
+    todo = [c for c in (curves or [active_curve()]) if _stale(c)]
+    for c in todo:
+        if c not in CURVE_IDS:
+            raise ValueError(f"no CUDA traits for curve {c!r} (csrc/mont.cuh)")
+    if not todo:
+        return time.perf_counter() - start
+    nvcc = _nvcc()
+    os.makedirs(_BUILD_ROOT, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=_BUILD_ROOT) as tmp:
+        procs = []
+        for c in todo:
+            os.makedirs(build_dir(c), exist_ok=True)
             for src in _SOURCES:
-                obj = os.path.join(tmp, src.replace(".cu", ".o"))
-                objs.append(obj)
-                cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-                       "-Xptxas", "-v", *_SOURCE_FLAGS.get(src, []),
+                obj = os.path.join(tmp, f"{c}.{src.replace('.cu', '.o')}")
+                cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", f"-DMARLIN_CURVE_{c.upper()}",
+                       "-Xcompiler", "-fPIC", "-Xptxas", "-v", *_SOURCE_FLAGS.get(src, []),
                        "-c", os.path.join(_CSRC, src), "-o", obj]
-                procs.append((src, subprocess.Popen(
+                procs.append((c, src, obj, subprocess.Popen(
                     cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-            for src, p in procs:
-                out, _ = p.communicate()
-                if p.returncode != 0:
-                    raise RuntimeError(f"nvcc failed on {src}:\n{out}")
-                with open(os.path.join(_BUILD_DIR, src + ".ptxas.txt"), "w") as f:
-                    f.write(out)
-            so_tmp = os.path.join(tmp, "lib.so")
+        failed = None
+        for c, src, _, p in procs:
+            out, _ = p.communicate()
+            if p.returncode != 0:
+                failed = failed or f"nvcc failed on {src} for {c}:\n{out}"
+                continue
+            with open(os.path.join(build_dir(c), src + ".ptxas.txt"), "w") as f:
+                f.write(out)
+        if failed:
+            raise RuntimeError(failed)
+        for c in todo:
+            so_tmp = os.path.join(tmp, f"{c}.so")
+            objs = [obj for cc, _, obj, _ in procs if cc == c]
             link = subprocess.run(
                 [nvcc, *ARCH_FLAGS, "-shared", "-o", so_tmp, *objs],
                 capture_output=True, text=True,
             )
             if link.returncode != 0:
-                raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
-            os.replace(so_tmp, _SO)
+                raise RuntimeError(f"nvcc link failed for {c}:\n{link.stdout}{link.stderr}")
+            os.replace(so_tmp, lib_path(c))
     return time.perf_counter() - start
 
 
 def lib():
-    """The loaded kernel library (built on first call); raises on failure."""
+    """The loaded kernel library of the active curve (built on first call);
+    raises on a failed build or a library of another curve."""
     global _LIB
     if _LIB is None:
-        build()
-        handle = ctypes.CDLL(_SO)
+        curve = active_curve()
+        build([curve])
+        handle = ctypes.CDLL(lib_path(curve))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(handle, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        handle.marlin_curve_id.argtypes = []
+        handle.marlin_curve_id.restype = ctypes.c_char_p
+        built_for = handle.marlin_curve_id().decode()
+        if built_for != curve:
+            raise RuntimeError(f"{lib_path(curve)} was built for {built_for!r}, not {curve!r}")
         _LIB = handle
     return _LIB
 

@@ -1,7 +1,8 @@
-"""BLS12-381 G1 group law on point batches: kernels 4, 5 and 6.
+"""The G1 group law of the active curve on point batches: kernels 4, 5 and 6.
 
 Port of `marlin_tpu/ops/pallas/curve.py`.  A point batch is a tuple
-(X, Y, Z) of `[.., 24]` int32 Fq Montgomery limb tensors, Jacobian,
+(X, Y, Z) of `[.., L]` int32 Fq Montgomery limb tensors (L = fq.L: 24, or
+16 for BN254), Jacobian,
 identity <=> Z == 0 (ops/curve_device.py).  Five functions, each as a
 kernel wrapper (csrc/curve.cu; the ladder and the combine csrc/chain.cu)
 and a plain PyTorch version, routed by the tensor's device alone (a CUDA
@@ -172,7 +173,7 @@ def madd_plain(p, x2, y2, exact: bool):
 
 def _scalar_operands(points, scalar_limbs, num_bits: int):
     """Points and [.., 16] canonical scalar limbs broadcast to one batch
-    shape -> (shape, three [n, 24] coordinates, [n, 16] limbs)."""
+    shape -> (shape, three [n, L] coordinates, [n, 16] limbs)."""
     if not 0 <= num_bits <= 16 * scalar_limbs.shape[-1]:
         raise ValueError(f"scalar_mul: {num_bits} bits for {scalar_limbs.shape[-1]} 16-bit limbs")
     shape = torch.broadcast_shapes(*(c.shape[:-1] for c in points), scalar_limbs.shape[:-1])
@@ -198,17 +199,17 @@ def scalar_mul_plain(points, scalar_limbs: torch.Tensor, num_bits: int = 255):
 
 
 def pack_points_xy(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """[.., 24] X and Y limbs -> [.., 24] packed rows: column p < 12 holds X
-    limbs (2p, 2p+1) as lo | hi << 16, columns 12.. the same for Y — each
-    coordinate as twelve 32-bit limbs, stored as int32 bit patterns (96 B
-    per row, half the gathered bytes of the limb layout)."""
+    """[.., L] X and Y limbs -> [.., L] packed rows: column p < L/2 holds X
+    limbs (2p, 2p+1) as lo | hi << 16, columns L/2.. the same for Y — each
+    coordinate as L/2 32-bit limbs, stored as int32 bit patterns (96 B per
+    row at L = 24, 64 B at 16: half the gathered bytes of the limb layout)."""
     w = torch.cat([x[..., 0::2], y[..., 0::2]], -1).to(torch.int64)
     w = w | (torch.cat([x[..., 1::2], y[..., 1::2]], -1).to(torch.int64) << 16)
     return (w - ((w >> 31) << 32)).to(torch.int32)
 
 
 def unpack_xy_rows(g: torch.Tensor) -> tuple:
-    """[.., 24] packed rows -> ([.., 24] X, [.., 24] Y) limbs (`_unpack_xy_rows`)."""
+    """[.., L] packed rows -> ([.., L] X, [.., L] Y) limbs (`_unpack_xy_rows`)."""
     w = g.to(torch.int64) & 0xFFFFFFFF
     limbs = torch.stack([w & 0xFFFF, w >> 16], -1).reshape(*g.shape[:-1], 2 * _L)
     limbs = limbs.to(torch.int32)
@@ -270,7 +271,7 @@ def _check_subrows(subrows: int) -> int:
 
 
 def _combine_operands(stacked):
-    """[W, 1] (or [W]) stacked Jacobian sums -> three [W, 24] tensors."""
+    """[W, 1] (or [W]) stacked Jacobian sums -> three [W, L] tensors."""
     W = stacked[0].shape[0]
     if not 1 <= W <= COMBINE_MAX:
         raise ValueError(f"combine_windows: {W} window sums, expected 1 to {COMBINE_MAX}")
@@ -372,7 +373,7 @@ def bucket_fold_kernel(table: torch.Tensor, layout: torch.Tensor, exact: bool = 
     """Kernel 5: see `bucket_fold`."""
     cuda.require_cuda_field_tensor(table, "bucket_fold table", _L)
     if table.dim() != 2:
-        raise ValueError("bucket_fold: the table is [rows, 24] packed rows")
+        raise ValueError(f"bucket_fold: the table is [rows, {_L}] packed rows")
     if not layout.is_cuda or layout.device != table.device:
         raise ValueError("bucket_fold: the layout must be a CUDA tensor beside the table")
     if layout.dtype != torch.int32 or layout.dim() != 2 or not layout.is_contiguous():
@@ -465,7 +466,7 @@ def scalar_mul(points, scalar_limbs: torch.Tensor, num_bits: int = 255):
 def bucket_fold(table: torch.Tensor, layout: torch.Tensor, exact: bool = False):
     """Σ over each bucket lane's slots of signed table points.
 
-    table: [rows, 24] `pack_points_xy` rows of affine points.  layout:
+    table: [rows, L] `pack_points_xy` rows of affine points.  layout:
     [lanes, cap] int32, lane-major: entry (b, j) is slot j of bucket lane b —
     0 = empty, +k = table row k-1, -k = its negation (G1 has prime order, so
     y != 0 for every real point).  Sub-row r of a lane's S =
@@ -484,7 +485,7 @@ def bucket_fold(table: torch.Tensor, layout: torch.Tensor, exact: bool = False):
 def combine_windows(stacked, c: int):
     """Σ_w 2^(c·w)·T_w over W <= 128 window sums -> a [1]-batch point.
 
-    stacked: (X, Y, Z) of [W, 1, 24] (or [W, 24]) Jacobian limbs.  Window w
+    stacked: (X, Y, Z) of [W, 1, L] (or [W, L]) Jacobian limbs.  Window w
     doubles c·w times (Y = 0 or Z = 0 gives the identity, as `double`), then
     lanes join in a halving tree of complete adds: at level s (powers of two
     down from half the next power of two >= W), lane w < s takes lane w + s

@@ -1,7 +1,8 @@
-"""BLS12-381 G1 point batches as tensors (Jacobian over Fq limbs).
+"""G1 point batches of the active curve as tensors (Jacobian over Fq limbs).
 
 Port of `marlin_tpu/ops/curve_device.py`.  A point batch is a tuple
-(X, Y, Z) of `[.., 24]` Fq Montgomery limb tensors, identity <=> Z == 0.
+(X, Y, Z) of `[.., fq.L]` Fq Montgomery limb tensors (24 limbs, 16 for
+BN254), identity <=> Z == 0.
 `add`, `double` and `scalar_mul_batch` are kernel 4 on a CUDA tensor and
 its plain version on a CPU tensor (ops/curve.py); the field ops route the same way
 (ops/routing.py).  Every edge case is resolved per lane, so one launch

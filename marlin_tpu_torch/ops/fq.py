@@ -1,8 +1,10 @@
-"""BLS12-381 base-field (Fq) arithmetic on tensors.
+"""Base-field (Fq) arithmetic on tensors, for the active curve.
 
-Elements are `[.., 24]` int32 tensors of 16-bit limbs in Montgomery form
-(R = 2^384).  The elementwise ops route by device like ops/fr.py; the
-curve layer (ops/curve_device.py) holds points in this layout.
+Elements are `[.., L]` int32 tensors of 16-bit limbs in Montgomery form,
+R = 2^(16 L), with L from the curve's config: 24 (R = 2^384) for
+BLS12-381, BLS12-377 and synthetic_lowadic, 16 (R = 2^256) for BN254.  The
+elementwise ops route by device like ops/fr.py; the curve layer
+(ops/curve_device.py) holds points in this layout.
 """
 
 from __future__ import annotations
@@ -15,8 +17,8 @@ from . import bigint as bi
 from . import routing as _routing
 from .limbs import int_to_limbs, ints_to_limbs, limbs_to_ints
 
-# 24 x 16-bit limbs for BLS12-381's 381-bit Fq
-CTX = bi.ModCtx("fq", P.Q_MODULUS, P.FQ_BYTES * 8 // 16)
+# 16-bit limbs: FQ_BYTES of the curve's config (48 or 32 bytes)
+CTX = bi.ModCtx("fq", P.Q_MODULUS, P.FQ_BYTES * 8 // 16, P.CURVE_NAME)
 L = CTX.L
 
 

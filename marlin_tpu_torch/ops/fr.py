@@ -1,4 +1,4 @@
-"""BLS12-381 scalar-field (Fr) arithmetic on tensors.
+"""Scalar-field (Fr) arithmetic on tensors, for the active curve.
 
 Binds the limb machinery of ops/bigint.py to the Fr modulus.  Elements are
 `[.., 16]` int32 tensors of 16-bit limbs in Montgomery form.  The
@@ -18,7 +18,7 @@ from . import routing as _routing
 from .limbs import int_to_limbs, ints_to_limbs, limbs_to_ints
 
 # limb count tracks the config's Montgomery radix (R = 2^(8*FR_BYTES))
-CTX = bi.ModCtx("fr", P.R_MODULUS, P.FR_BYTES * 8 // 16)
+CTX = bi.ModCtx("fr", P.R_MODULUS, P.FR_BYTES * 8 // 16, P.CURVE_NAME)
 L = CTX.L
 
 

@@ -2,8 +2,9 @@
 
 Field elements are `[..., L]` arrays of base-2^16 limbs, least-significant
 first — the layout of the JAX package, kept at this package's API so the
-two compare limb for limb.  Fr (255-bit) uses L=16 (R = 2^256); Fq
-(381-bit) uses L=24 (R = 2^384).  Torch tensors store the limbs as int32
+two compare limb for limb.  L comes from the curve's config: Fr
+(254-255 bits) uses L=16 (R = 2^256); Fq uses L=24 (R = 2^384) for the
+377-381-bit moduli and L=16 for BN254's 254-bit one.  Torch tensors store the limbs as int32
 (`LIMB_DTYPE`); the helpers here build numpy arrays from Python ints.
 """
 

@@ -27,8 +27,9 @@ caller's tensors and by whether it has a table:
   and tails of at most `_TAIL_MAX` points past a `_FIXED_QUANT` boundary,
   run through one shared ladder over the table's window rows
   (`_shared_ladder`): c-bit digits, not 255-bit scalars.
-* The host route: the native C Pippenger, for points on the CPU.  The
-  route follows the tensors' device alone; the port does not read the JAX
+* The host route, for points on the CPU: the native C Pippenger for
+  BLS12-381, the host Python Pippenger of `hc.g1_msm` for the other curves
+  (`_host_msm`).  The route follows the tensors' device alone; the port does not read the JAX
   package's `MARLIN_TPU_HOST_MSM` switch (msm.py:1035, :1101-1112), which
   would move the card's MSMs to the host.
 
@@ -63,7 +64,14 @@ _PIPPENGER_MIN = 1 << 10
 
 
 def _host_msm(points: cd.Point, scalars_mont: torch.Tensor) -> cd.Point:
-    if not nc.available():
+    """The host route, for points on the CPU: the native C Pippenger for
+    BLS12-381 (which raises if that library failed to build), the host
+    Python group law of `hc.g1_msm` for a curve the C runtime does not
+    carry, as in the JAX package (host_curve.py:285).  A card tensor never
+    takes it."""
+    if points[0].is_cuda:
+        raise ValueError("the host MSM takes CPU tensors; card tensors run on the card")
+    if P.CURVE_NAME == "bls12_381" and not nc.available():
         raise RuntimeError("the native curve library (csrc/marlin_curve.c) failed to build")
     affs = cd.to_affine_ints_host(points)
     scals = fr.to_ints(scalars_mont)
@@ -166,8 +174,9 @@ def pending_fold_flags() -> list:
 
 
 class FixedBaseTable:
-    """table[w·N + i] = 2^(c·w)·P_i in affine form, as ONE [W·N, 24] array
-    of `curve.pack_points_xy` rows (X and Y as 32-bit limbs: 96 B a row)."""
+    """table[w·N + i] = 2^(c·w)·P_i in affine form, as ONE [W·N, fq.L] array
+    of `curve.pack_points_xy` rows (X and Y as 32-bit limbs: 96 B a row, 64 B
+    for BN254)."""
 
     def __init__(self, xy: torch.Tensor, c: int, num_windows: int, n_base: int):
         self.xy = xy

@@ -1,6 +1,6 @@
-"""Radix-2 NTT over Fr.
+"""NTTs over Fr: radix-2 and mixed-radix.
 
-Port of `marlin_tpu/ops/ntt.py` (radix-2 path): decimation-in-time on
+Port of `marlin_tpu/ops/ntt.py`.  Radix-2: decimation-in-time on
 bit-reversed input, log2(n) butterfly stages, inverse scaled by n^-1.  The
 output matches the JAX package limb for limb; only the staging differs.
 
@@ -13,7 +13,17 @@ launch per remaining stage.  A transform is therefore 1 + max(0, log2(n) -
 product.
 On a CPU tensor the plain twins of those two kernels run
 (`block_stages_plain`, `cross_stage_plain`) — the same gather, scale and
-stage math in plain PyTorch.  Mixed-radix domains are not ported yet.
+stage math in plain PyTorch.
+
+Mixed-radix sizes n = n1·n2 (n1 = 3^s <= 27, n2 = 2^k; the domains of a
+field of low 2-adicity, `snark/domains.py`) take the reference's
+Cooley-Tukey split (`_ntt_mixed_core`, marlin_tpu/ops/ntt.py:160): the n1
+inner radix-2 transforms of size n2, with root ω^{n1}, run as ONE batch of
+kernel 3 over the flattened [n1·n2, 16] array (an inverse transform's n^-1
+enters as kernel 3(a)'s scale); the twiddle by W[j1, k2] is one kernel-1
+product; the small DFT over j1 is one broadcast kernel-1 product of
+[n1, n1, n2] and one `modsum` over j1, not n1^2 launches.  The plain path
+is the same sequence through the plain twins.
 """
 
 from __future__ import annotations
@@ -37,12 +47,15 @@ BLOCK_LOG2 = 10
 
 
 @functools.lru_cache(maxsize=None)
-def _plan(n: int, inverse: bool):
+def _plan(n: int, inverse: bool, root: int | None = None):
     """(bit-reversal permutation [n], twiddle table [n-1, 16] uint32).
 
     Stage s (half-blocks of m = 2^s) uses rows [m-1, 2m-1) of the table:
     TW_s[j] = w_{2m}^j in Montgomery form, w_{2m} = g^(n/2m) with g the
-    generator of Radix2Domain(n) (its inverse for inverse transforms)."""
+    generator of Radix2Domain(n) (its inverse for inverse transforms), or
+    `root`, a primitive n-th root already inverted for an inverse transform
+    (the inner transforms of a mixed-radix size run with ω^{n1}; the
+    reference's `_plan` takes the same argument)."""
     from ..snark.domains import Radix2Domain
 
     log_n = n.bit_length() - 1
@@ -51,8 +64,11 @@ def _plan(n: int, inverse: bool):
     rev = np.zeros(n, dtype=np.int64)
     for b in range(log_n):
         rev |= ((idx >> b) & 1) << (log_n - 1 - b)
-    dom = Radix2Domain(n)
-    g = dom.group_gen_inv if inverse else dom.group_gen
+    if root is None:
+        dom = Radix2Domain(n)
+        g = dom.group_gen_inv if inverse else dom.group_gen
+    else:
+        g = root
     table = []
     for s in range(log_n):
         m = 1 << s
@@ -66,11 +82,53 @@ def _plan(n: int, inverse: bool):
 
 
 @functools.lru_cache(maxsize=None)
-def _plan_tensors(n: int, inverse: bool, device: torch.device):
+def _plan_tensors(n: int, inverse: bool, device: torch.device, root: int | None = None):
     """(twiddle table [n-1, 16] int32, n^-1 [16] for an inverse transform
-    or None) on `device`."""
-    tw = torch.as_tensor(_plan(n, inverse)[1].astype(np.int32), device=device)
-    return tw, fr.from_int(pow(n, -1, R), device) if inverse else None
+    or None) on `device`.  With a `root` (a mixed-radix size's inner
+    transforms) there is no scale: the caller scales by its own n^-1."""
+    tw = torch.as_tensor(_plan(n, inverse, root)[1].astype(np.int32), device=device)
+    return tw, fr.from_int(pow(n, -1, R), device) if inverse and root is None else None
+
+
+@functools.lru_cache(maxsize=None)
+def _mixed_plan(n: int, inverse: bool):
+    """Host precompute of the Cooley-Tukey split n = n1·n2 (n1 = base^s,
+    n2 = 2^k; marlin_tpu/ops/ntt.py:108): (n1, n2, the inner root ω^{n1},
+    W[j1, k2] = ω^{j1 k2} as [n1, n2, 16] limbs, M[k1, j1] = (ω^{n2})^{j1 k1}
+    as [n1, n1, 16] limbs), ω the domain's generator (inverted for an
+    inverse transform), all in Montgomery form."""
+    from ..snark.domains import MixedRadixDomain, factor_size
+
+    two, base, exp = factor_size(n)
+    n1, n2 = base**exp, 1 << two
+    assert n1 > 1, "a mixed plan needs a small-subgroup factor"
+    dom = MixedRadixDomain(n)
+    w = dom.group_gen_inv if inverse else dom.group_gen
+
+    def powers(g: int, count: int) -> list:
+        out, t = [], 1
+        for _ in range(count):
+            out.append(t * P.FR_MONT_R % R)
+            t = t * g % R
+        return out
+
+    W = [v for j1 in range(n1) for v in powers(pow(w, j1, R), n2)]
+    wn2 = pow(w, n2, R)
+    M = [v for k1 in range(n1) for v in powers(pow(wn2, k1, R), n1)]
+    return (n1, n2, pow(w, n1, R), ints_to_limbs(W, fr.L).reshape(n1, n2, fr.L),
+            ints_to_limbs(M, fr.L).reshape(n1, n1, fr.L))
+
+
+@functools.lru_cache(maxsize=None)
+def _mixed_tensors(n: int, inverse: bool, device: torch.device):
+    """`_mixed_plan` on `device`: (n1, n2, inner twiddle table or None,
+    W [n1, n2, 16], M [n1, n1, 1, 16], n^-1 [16] for an inverse transform or
+    None)."""
+    n1, n2, root, W, M = _mixed_plan(n, inverse)
+    tw = _plan_tensors(n2, inverse, device, root)[0] if n2 > 1 else None
+    W, M = (torch.as_tensor(a.astype(np.int32), device=device) for a in (W, M))
+    scale = fr.from_int(pow(n, -1, R), device) if inverse else None
+    return n1, n2, tw, W, M[:, :, None], scale
 
 
 @functools.lru_cache(maxsize=None)
@@ -161,24 +219,9 @@ def cross_stage_kernel(x: torch.Tensor, tw: torch.Tensor, s: int) -> torch.Tenso
 # transforms
 
 
-def transform(
-    x: torch.Tensor, inverse: bool, plain: bool | None = None, block_log2: int = BLOCK_LOG2
-) -> torch.Tensor:
-    """NTT (or inverse NTT) along dim -2 of [n, 16] or [batch, n, 16].
-
-    `plain=None` picks by device: the kernels for a CUDA tensor, their plain
-    twins for a CPU tensor.  `plain=True` forces the plain twins on any
-    device (how chip_smoke.py holds the kernels against them)."""
-    n = x.shape[-2]
-    if n & (n - 1):
-        raise NotImplementedError(f"mixed-radix NTT (size {n}) is not yet ported")
-    if plain is None:
-        plain = not x.is_cuda
-    if n == 1:  # no stage, and n^-1 = 1
-        return x.clone()
-    log_n = n.bit_length() - 1
-    tw, scale = _plan_tensors(n, inverse, x.device)
-    flat = x.reshape(-1, fr.L)
+def _radix2_stages(flat: torch.Tensor, log_n: int, tw, scale, plain: bool, block_log2: int):
+    """Every 2^log_n transform of flat [total, 16] (log_n >= 1): kernel 3(a)
+    and one 3(b) launch per stage past the block, or their plain twins."""
     log_b = min(log_n, block_log2)
     if plain:
         y = block_stages_plain(flat, tw, log_b, log_n, scale)
@@ -188,6 +231,55 @@ def transform(
         y = block_stages_kernel(flat, tw, log_b, log_n, scale)
         for s in range(log_b, log_n):
             cross_stage_kernel(y, tw, s)
+    return y
+
+
+def _log2(n: int) -> int:
+    return n.bit_length() - 1
+
+
+# mixed-radix transforms run, by the device of their tensor
+MIXED_TRANSFORMS = {"cuda": 0, "cpu": 0}
+
+
+def _mixed(x: torch.Tensor, inverse: bool, plain: bool, block_log2: int) -> torch.Tensor:
+    """The Cooley-Tukey split of a mixed-radix size along dim -2: input
+    index j = j1 + n1 j2, output k = k1 n2 + k2 (`_ntt_mixed_core`)."""
+    n = x.shape[-2]
+    n1, n2, tw, W, M, scale = _mixed_tensors(n, inverse, x.device)
+    MIXED_TRANSFORMS["cuda" if x.is_cuda else "cpu"] += 1
+    mul = (lambda a, b: bi.mont_mul(fr.CTX, a, b)) if plain else fr.mul
+    B = x.numel() // (n * fr.L)
+    # [B, n2, n1] -> [B, n1, n2]: row (b, j1) holds x[j1 + n1 j2] over j2
+    v = x.reshape(B, n2, n1, fr.L).transpose(1, 2).contiguous()
+    if n2 > 1:  # the B n1 inner transforms, one batch; n^-1 as their input scale
+        v = _radix2_stages(v.reshape(-1, fr.L), _log2(n2), tw, scale, plain, block_log2)
+    v = mul(v.reshape(B, n1, n2, fr.L), W)
+    # the small DFT: out[b, k1, k2] = Σ_j1 M[k1, j1] v[b, j1, k2], one product
+    out = bi.modsum(fr.CTX, mul(v[:, None], M), dim=2, plain=plain)
+    if n2 == 1 and scale is not None:
+        out = mul(out, scale)
+    return out.reshape(x.shape)
+
+
+def transform(
+    x: torch.Tensor, inverse: bool, plain: bool | None = None, block_log2: int = BLOCK_LOG2
+) -> torch.Tensor:
+    """NTT (or inverse NTT) along dim -2 of [n, 16] or [batch, n, 16], n a
+    power of two or a mixed-radix domain size.
+
+    `plain=None` picks by device: the kernels for a CUDA tensor, their plain
+    twins for a CPU tensor.  `plain=True` forces the plain twins on any
+    device (how chip_smoke.py holds the kernels against them)."""
+    n = x.shape[-2]
+    if plain is None:
+        plain = not x.is_cuda
+    if n & (n - 1):
+        return _mixed(x, inverse, plain, block_log2)
+    if n == 1:  # no stage, and n^-1 = 1
+        return x.clone()
+    tw, scale = _plan_tensors(n, inverse, x.device)
+    y = _radix2_stages(x.reshape(-1, fr.L), _log2(n), tw, scale, plain, block_log2)
     return y.reshape(x.shape)
 
 
@@ -219,15 +311,22 @@ def intt(evals: torch.Tensor) -> torch.Tensor:
 
 def ntt_many(polys: list, n: int) -> list:
     """Forward NTTs of several polynomials onto one size-n domain, batched
-    into one set of launches; bit-identical to per-poly `ntt`."""
+    into one set of launches for a power of two, one transform a polynomial
+    for a mixed-radix size (the reference's `_batchable`, :267); either way
+    bit-identical to per-poly `ntt`."""
+    if n & (n - 1):
+        return [ntt(p, n) for p in polys]
     out = transform(torch.stack([_pad_for(p, n) for p in polys]), inverse=False)
     return list(out.unbind(0))
 
 
 def intt_many(evals: list) -> list:
-    """Inverse NTTs of several same-size evaluation vectors, batched."""
+    """Inverse NTTs of several same-size evaluation vectors, batched for a
+    power of two, one at a time for a mixed-radix size."""
     n = evals[0].shape[0]
     assert all(e.shape[0] == n for e in evals)
+    if n & (n - 1):
+        return [intt(e) for e in evals]
     return list(transform(torch.stack(evals), inverse=True).unbind(0))
 
 

@@ -18,15 +18,12 @@ def use_cuda(t: torch.Tensor) -> bool:
     return t.is_cuda
 
 
-_PLAIN = {"mul": bi.mont_mul, "add": bi.add_mod, "sub": bi.sub_mod}
-
-
 def binop(kind: str, ctx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.device != b.device:
         raise ValueError(f"field {kind}: operands on {a.device} and {b.device}")
     if use_cuda(a):
         return bi.binop_kernel(kind, ctx, a, b)
-    return _PLAIN[kind](ctx, a, b)
+    return bi.PLAIN_OPS[kind](ctx, a, b)
 
 
 def inv(ctx, x: torch.Tensor) -> torch.Tensor:

@@ -35,6 +35,7 @@ import torch
 from ..fields import active as P
 from ..fields import host_curve as hc
 from ..fields import host_pairing as hp
+from ..fields import native_curve as nc
 from ..ops import curve_device as cd
 from ..ops import fq, fr, msm, poly
 from ..utils.rand import ZkRng
@@ -143,10 +144,26 @@ class BatchLCProof:
 # setup / trim
 
 
+def _g1_powers(scalars: list, device) -> tuple:
+    """(Jacobian batch of [s·G] on `device` in affine form, host affine
+    points of its first 8).  BLS12-381 takes the native C fixed-base routine
+    (csrc/marlin_curve.c).  A curve without the native runtime, on the card,
+    takes kernel 4's ladder (`msm.fixed_base_powers`) and one normalization
+    on the card: the host Python body of `hc.g1_fixed_base_powers` would
+    take minutes at an SRS of 2^16 powers; the affine points are the same.
+    On the CPU it takes that host body, as the JAX package does."""
+    if torch.device(device).type == "cuda" and not nc.available():
+        pts = cd.normalize_batch(msm.fixed_base_powers(hc.G1_GEN, scalars, device))
+        return pts, cd.to_affine_ints_host(tuple(c[:8] for c in pts))
+    affine = hc.g1_fixed_base_powers(hc.G1_GEN, scalars)
+    return cd.from_affine_ints(affine, device), affine[:8]
+
+
 def setup(max_degree: int, rng: ZkRng, device, neg_powers_of_h: bool = False) -> UniversalParams:
     """Powers-of-τ generation (the trusted-setup artifact; reference
-    PC::setup at src/lib.rs:93), host-side through the native fixed-base
-    routines (csrc/marlin_curve.c); the G1 powers land on `device`.
+    PC::setup at src/lib.rs:93), through the native fixed-base routines
+    (csrc/marlin_curve.c) for BLS12-381 and through `_g1_powers` for the
+    other curves; the G1 powers land on `device`.
 
     With `neg_powers_of_h` the SRS also carries every negative power of τ
     in G2 (ark sonic_pc's UniversalParams layout), so the Sonic variant's
@@ -160,10 +177,8 @@ def setup(max_degree: int, rng: ZkRng, device, neg_powers_of_h: bool = False) ->
         taus[i] = taus[i - 1] * tau % R
     gammas = [gamma * t % R for t in taus] + [gamma * taus[-1] * tau % R]
 
-    g_affine = hc.g1_fixed_base_powers(hc.G1_GEN, taus)
-    gamma_affine = hc.g1_fixed_base_powers(hc.G1_GEN, gammas)
-    powers_g = cd.from_affine_ints(g_affine, device)
-    powers_gamma = cd.from_affine_ints(gamma_affine, device)
+    powers_g, _ = _g1_powers(taus, device)
+    powers_gamma, gamma_head = _g1_powers(gammas, device)
 
     h = hc.G2_GEN
     beta_h = hc.g2_mul(h, tau)
@@ -175,7 +190,7 @@ def setup(max_degree: int, rng: ZkRng, device, neg_powers_of_h: bool = False) ->
             neg_taus[i] = neg_taus[i - 1] * tau_inv % R
         neg_h = hc.g2_fixed_base_powers(h, neg_taus)
     n_prefix = min(8, max_degree + 2)
-    host_gamma = gamma_affine[:n_prefix]
+    host_gamma = gamma_head[:n_prefix]
     return UniversalParams(
         powers_of_g=powers_g,
         powers_of_gamma_g=powers_gamma,

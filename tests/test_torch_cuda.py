@@ -444,3 +444,151 @@ def test_shared_ladder_on_the_card_matches_its_plain_run(dev):
     for k, p in zip(got, plain):
         assert torch.equal(k.cpu(), p)
     assert cd.to_affine_ints(got) == [hc.g1_msm(pts[off : off + len(ks)], ks) for off, ks in items]
+
+
+# --------------------------------------------------------------------------
+# the field entries refuse a context that is not the compiled one
+
+
+def _foreign_contexts():
+    """Contexts the library of the active curve must refuse: another modulus
+    of the same width for each field (Fr's width 8 is where the entries once
+    picked the traits by width alone), the other field's id with the right
+    modulus, and the right words under another curve's number."""
+    from marlin_tpu_torch.fields import bn254, bls12_377
+
+    other = bls12_377 if fr.CTX.curve == "bn254" else bn254
+    foreign_fq = other.Q_MODULUS if fq.L == other.FQ_BYTES // 2 else bls12_377.Q_MODULUS
+    if foreign_fq == fq.CTX.modulus:
+        foreign_fq = bn254.Q_MODULUS if fq.L == 16 else bls12_377.Q_MODULUS
+    wrong_curve = next(c for c in cuda.CURVE_IDS if c != fr.CTX.curve)
+    return [
+        ("fr, another modulus", bi.ModCtx("fr", other.R_MODULUS, fr.L, fr.CTX.curve)),
+        ("fq, another modulus", bi.ModCtx("fq", foreign_fq, fq.L, fq.CTX.curve)),
+        ("fq's id, fr's modulus", bi.ModCtx("fq", fr.CTX.modulus, fr.L, fr.CTX.curve)),
+        ("fr, another curve", bi.ModCtx("fr", fr.CTX.modulus, fr.L, wrong_curve)),
+    ]
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_field_entries_refuse_a_foreign_context(dev, case):
+    label, ctx = _foreign_contexts()[case]
+    x = torch.ones((64, ctx.L), dtype=torch.int32, device=dev)
+    for kind in ("mul", "add", "sub"):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            bi.binop_kernel(kind, ctx, x, x)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        bi.inv_kernel(ctx, x)
+    torch.cuda.synchronize()
+
+
+def test_library_names_the_active_curve(dev):
+    lib = cuda.lib()
+    assert lib.marlin_curve_id().decode() == fr.CTX.curve == cuda.active_curve()
+    assert cuda.lib_path().endswith(f"{fr.CTX.curve}/libmarlin_cuda.so")
+
+
+# --------------------------------------------------------------------------
+# the other curves, each in a process of its own (the curve is chosen once
+# a process): kernels 1 and 2 at both fields, and kernels 3-6 at small
+# shapes, each against its plain version
+
+_CURVE_PROG = r"""
+import numpy as np, torch
+from marlin_tpu_torch.fields import active as P
+from marlin_tpu_torch.fields import host_curve as hc
+from marlin_tpu_torch.ops import bigint as bi
+from marlin_tpu_torch.ops import cuda, curve, fq, fr, msm, ntt
+from marlin_tpu_torch.ops import curve_device as cd
+from marlin_tpu_torch.ops.limbs import ints_to_limbs
+
+assert P.CURVE_NAME == CURVE and cuda.lib().marlin_curve_id().decode() == CURVE
+dev = torch.device("cuda")
+rng = np.random.default_rng(5)
+
+def elements(mod, n):
+    ctx = mod.CTX
+    vals = [int.from_bytes(rng.bytes(56), "little") % ctx.modulus for _ in range(n)]
+    vals[:4] = [0, 1, ctx.modulus - 2, ctx.modulus - 1]
+    return mod.from_ints(vals, dev)
+
+def same(a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b)) if isinstance(a, tuple) else torch.equal(a, b)
+
+for mod in (fr, fq):
+    ctx = mod.CTX
+    a, b = elements(mod, 3000), elements(mod, 3000).flip(0)
+    for kind, plain in (("mul", bi.mont_mul), ("add", bi.add_mod), ("sub", bi.sub_mod)):
+        assert same(bi.binop_kernel(kind, ctx, a, b), plain(ctx, a, b)), (ctx.name, kind)
+    raw = torch.as_tensor(rng.integers(0, 1 << 16, size=(3000, ctx.L)).astype(np.int32), device=dev)
+    assert same(bi.binop_kernel("mul", ctx, raw, b), bi.mont_mul(ctx, raw, b)), (ctx.name, "a < R")
+    for n in (1, 7, 4099):
+        x = elements(mod, n)
+        if n > 128:
+            x[127] = 0
+        got = bi.inv_kernel(ctx, x)
+        assert same(got, bi.inv_mod(ctx, x)), (ctx.name, "inv", n)
+        zero = (x == 0).all(-1)
+        one = torch.as_tensor(ctx.one_limbs.astype(np.int32), device=dev)
+        assert bool((bi.binop_kernel("mul", ctx, x, got)[~zero] == one).all()), (ctx.name, "x/x", n)
+    print(ctx.name, "binop and inv ok", flush=True)
+
+def has_domain(n):
+    from marlin_tpu_torch.snark.domains import domain_of_size
+    try:
+        return pow(domain_of_size(n).group_gen, n, P.R_MODULUS) == 1
+    except (ValueError, AssertionError):
+        return False
+
+for n in (1 << 11, 3 * (1 << 11), 27 * (1 << 4)):
+    if not has_domain(n):
+        continue
+    x = elements(fr, 2 * n).reshape(2, n, fr.L)
+    for inverse in (False, True):
+        assert same(ntt.transform(x, inverse), ntt.transform(x, inverse, plain=True)), ("ntt", n, inverse)
+print("ntt ok", flush=True)
+
+ks = [int.from_bytes(rng.bytes(40), "little") % P.R_MODULUS for _ in range(64)]
+pts = hc.g1_fixed_base_powers(hc.G1_GEN, [k or 1 for k in ks])
+a, b = list(pts), pts[1:] + pts[:1]
+a[0], b[1], b[2], a[3], b[3] = None, None, a[2], a[4], hc.g1_neg(a[4])
+A, B = cd.from_affine_ints(a, dev), cd.from_affine_ints(b, dev)
+S = curve.add_kernel(A, B)
+assert same(S, curve.add_plain(A, B))
+assert cd.to_affine_ints(S) == [hc.g1_add(x, y) for x, y in zip(a, b)]
+assert same(curve.add_kernel(S, B), curve.add_plain(S, B))
+assert same(curve.double_kernel(S), curve.double_plain(S))
+scal = torch.as_tensor(ints_to_limbs([0, 1, P.R_MODULUS - 1] + ks[3:], 16).astype(np.int32), device=dev)
+got = curve.scalar_mul_kernel(S, scal, P.FR_BITS)
+assert same(got, curve.scalar_mul_plain(S, scal, P.FR_BITS))
+c = msm._fixed_c(64)
+table = msm.build_fixed_table(cd.from_affine_ints(pts, dev), c)
+lay = torch.zeros((4, 64), dtype=torch.int32, device=dev)
+lay[:, :40] = torch.arange(1, 41, device=dev, dtype=torch.int32)
+lay[1, 3] = -9
+lay[2, 5] = lay[2, 5 + 32] = -17
+for exact in (False, True):
+    kp, kf = curve.bucket_fold_kernel(table.xy, lay, exact)
+    pp, pf = curve.bucket_fold_plain(table.xy, lay, exact)
+    assert same(kp, pp) and int(kf) == int(pf), ("fold", exact)
+W = 26
+stacked = tuple(t[:W, None].contiguous() for t in S)
+assert same(curve.combine_windows_kernel(stacked, 10), curve.combine_windows_plain(stacked, 10))
+torch.cuda.synchronize()
+print("curve kernels ok", flush=True)
+"""
+
+
+@pytest.mark.parametrize("curve", ["bn254", "bls12_377", "synthetic_lowadic"])
+def test_other_curves_kernels_match_plain(dev, curve):
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    prog = f"CURVE = {curve!r}\n" + _CURVE_PROG
+    env = dict(os.environ, MARLIN_TPU_CURVE=curve)
+    res = subprocess.run([sys.executable, "-c", prog], cwd=root, env=env, capture_output=True,
+                         text=True, timeout=900)
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-4000:]
+    assert "curve kernels ok" in res.stdout

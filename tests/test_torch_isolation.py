@@ -93,3 +93,61 @@ def test_keys_on_another_device_are_not_moved(cpu_keys):
     _srs, pk, _vk = cpu_keys
     with pytest.raises(ValueError, match="lives on cpu"):
         Marlin.prove(pk, OneConstraint(), seeded_rng(), device="meta")
+
+
+@pytest.mark.parametrize("curve", ["bn254", "bls12_377", "synthetic_lowadic"])
+def test_other_curves_import_no_jax_and_prove_on_the_cpu_without_kernels(curve):
+    """Under another curve the package's new modules (the curve configs, the
+    generic tower and pairing, the mixed-radix NTT) import nothing of JAX,
+    a CPU prove launches no kernel, and a mixed-radix transform of CPU
+    tensors is counted as the host's."""
+    code = (
+        "import sys\n"
+        "from marlin_tpu_torch.fields import active as P, curve_generic, pairing_generic, host_pairing\n"
+        "from marlin_tpu_torch import interop\n"
+        "from marlin_tpu_torch.ops import cuda, fr, ntt\n"
+        "from marlin_tpu_torch.snark.marlin import Marlin\n"
+        "from marlin_tpu_torch.snark.r1cs import lc\n"
+        "from marlin_tpu_torch.utils.rand import test_rng\n"
+        f"assert P.CURVE_NAME == {curve!r} and fr.CTX.curve == P.CURVE_NAME\n"
+        "class C:\n"
+        "    def generate_constraints(self, cs):\n"
+        "        x = cs.new_witness_variable(lambda: 3)\n"
+        "        y = cs.new_witness_variable(lambda: 5)\n"
+        "        out = cs.new_input_variable(lambda: 15)\n"
+        "        cs.enforce_constraint(lc(x), lc(y), lc(out))\n"
+        "rng = test_rng()\n"
+        "srs = Marlin.universal_setup(32, 32, 96, rng, device='cpu')\n"
+        "pk, vk = Marlin.index(srs, C(), device='cpu')\n"
+        "proof = Marlin.prove(pk, C(), rng, device='cpu')\n"
+        "assert Marlin.verify(vk, [15], proof, rng, device='cpu')\n"
+        "x = fr.from_ints(list(range(1, 25)), 'cpu')\n"
+        "assert ntt.intt(ntt.transform(x, False)).equal(x) and ntt.MIXED_TRANSFORMS['cpu'] == 2\n"
+        "assert all(v == 0 for v in cuda.LAUNCHES.values()), cuda.LAUNCHES\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
+        " or m == 'marlin_tpu' or m.startswith('marlin_tpu.'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ, MARLIN_TPU_CURVE=curve)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+
+
+def test_test_wide750_is_not_ported_yet():
+    env = dict(os.environ, MARLIN_TPU_CURVE="test_wide750")
+    res = subprocess.run([sys.executable, "-c", "import marlin_tpu_torch.ops.fr"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0
+    assert "NotImplementedError" in res.stderr and "test_wide750" in res.stderr
+
+
+def test_interop_refuses_an_srs_of_another_curve():
+    import numpy as np
+
+    from marlin_tpu_torch import interop
+    from marlin_tpu_torch.ops import fq
+
+    other = np.zeros((4, 16 if fq.L == 24 else 24), np.int32)  # another curve's Fq width
+    with pytest.raises(ValueError, match="limbs"):
+        interop.universal_params({"powers_of_g": (other, other, other)}, "cpu")

@@ -55,7 +55,7 @@ def rate(torch) -> dict:
     from marlin_tpu_torch.ops import cuda
 
     lib = cuda.lib()
-    sass = sass_count.count(cuda._SO)["kernels"]
+    sass = sass_count.count(cuda.lib_path())["kernels"]
     m4, m8 = sass["imad_rate (4 rows)"]["multiplies"], sass["imad_rate (8 rows)"]["multiplies"]
     per_row = (m8 - m4) / 4  # SASS multiplies of one row of the kernel's 4 chains
     per_iter = 8 * per_row
@@ -104,10 +104,10 @@ def product_latency(torch, field: str, iters: int = PRODUCT_ITERS) -> dict:
     out = torch.empty(ctx.L, dtype=torch.int32, device=dev)
     cycles = torch.zeros(1, dtype=torch.int64, device=dev)
     lib = cuda.lib()
-    nl = ctx.L // 2
+    field_id = cuda.FIELD_IDS[ctx.name]
 
     def launch(n):
-        return lambda: cuda.check(lib.marlin_product_chain(nl, inp.data_ptr(), n, out.data_ptr(),
+        return lambda: cuda.check(lib.marlin_product_chain(field_id, inp.data_ptr(), n, out.data_ptr(),
                                                            cycles.data_ptr(), cuda.stream_handle(out)),
                                   "product_chain")
 

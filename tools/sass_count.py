@@ -2,15 +2,16 @@
 """Count the SASS instructions of the port's kernels, and of one Fq / Fr
 Montgomery product.
 
-    python3 tools/sass_count.py [--lib marlin_tpu_torch/build/libmarlin_cuda.so] [--out PATH]
+    python3 tools/sass_count.py [--lib marlin_tpu_torch/build/<curve>/libmarlin_cuda.so] [--out PATH]
 
 Disassembles the kernel library with `cuobjdump -sass` (CUDA toolkit) and
 counts, per kernel: all instructions, and the integer multiplies (IMAD and
 IMUL forms that multiply; the IMAD.MOV / .SHL / .IADD forms that the
 compiler uses as moves, shifts and adds are counted apart).  One product's
 count is the binop kernel's mul instance less its add instance (the same
-loads, stores and indexing around one field op), for Fq (12 limbs) and Fr
-(8 limbs).  Kernel names are matched in either template form the library
+loads, stores and indexing around one field op), for Fq (12 limbs; 8 for
+BN254) and Fr (8 limbs) of the library's curve.  Kernel names are matched
+in either template form the library
 has used: `binop_kernel<FqTraits, 0>` and the older `binop_kernel<12, 0>`.
 
 Prints one JSON object (and writes it to `--out`).  Needs `cuobjdump`; runs
@@ -29,7 +30,7 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-DEFAULT_LIB = os.path.join(ROOT, "marlin_tpu_torch", "build", "libmarlin_cuda.so")
+DEFAULT_LIB = os.path.join(ROOT, "marlin_tpu_torch", "build", "bls12_381", "libmarlin_cuda.so")
 
 # (field, op) -> mangled-name fragments of binop_kernel's instance, new and old form
 _BINOP = {

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch/CUDA port's prove, on one GPU.
 
-    python3 tools/torch_prove_profile.py [--log2 14] [--out PATH]
+    [MARLIN_TPU_CURVE=bn254] python3 tools/torch_prove_profile.py [--log2 14] [--out PATH]
 
 Builds the bench circuit (`DummyCircuit`, 2^log2 constraints, SRS sized by
 `ahp.max_degree(n, n, 3n)`), runs setup and index, one warm-up prove, then:
@@ -31,6 +31,11 @@ Builds the bench circuit (`DummyCircuit`, 2^log2 constraints, SRS sized by
 
 With `MARLIN_TPU_MSM_TABLE=0` in the environment the proves take the
 classic Pippenger instead of the fixed-base table.
+
+The active curve (`MARLIN_TPU_CURVE`, default BLS12-381) sets the fields
+and the group: the kernels' shapes above are element and point counts, and
+where its Fr's 2-adicity is below 16 (synthetic_lowadic: 13) the NTT
+kernels run the 2^16 elements as transforms of 2^(2-adicity) points.
 
 Prints one JSON object (and writes it to `--out`).  Needs a CUDA device;
 imports nothing of JAX.
@@ -174,6 +179,7 @@ def _kernel_device_times(torch, reps: int = 20) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from chip_smoke import FOLD_JOBS, fold_layout, random_elements
+    from marlin_tpu_torch.fields import active as P
     from marlin_tpu_torch.ops import bigint as bi
     from marlin_tpu_torch.ops import curve, fq, fr, msm, ntt
     from marlin_tpu_torch.ops import curve_device as cd
@@ -183,16 +189,19 @@ def _kernel_device_times(torch, reps: int = 20) -> dict:
     dev = torch.device("cuda")
     a = torch.as_tensor(random_elements(np, rng, fr.CTX, n), device=dev)
     b = torch.as_tensor(random_elements(np, rng, fr.CTX, n), device=dev)
-    tw, _ = ntt._plan_tensors(n, False, dev)
+    log_t = min(16, P.FR_TWO_ADICITY)  # the NTT kernels' transform size: 2^log_t points
+    tw, _ = ntt._plan_tensors(1 << log_t, False, dev)
     x = a.clone()
     fq_table = torch.as_tensor(random_elements(np, rng, fq.CTX, 25 * n), device=dev)
     # the group law's cost does not depend on the operands being points
     p, q = ([torch.as_tensor(random_elements(np, rng, fq.CTX, n), device=dev) for _ in range(3)]
             for _ in range(2))
     # a table of random 32-bit limbs below q, at the 2^14 prove's c = 10
-    xy = torch.randint(-(1 << 31), 1 << 31, (26 * n, 24), dtype=torch.int32, device=dev)
-    xy[:, 11] &= 0x0FFFFFFF
-    xy[:, 23] &= 0x0FFFFFFF
+    half = fq.L // 2  # 32-bit words a coordinate
+    top = fq.CTX.modulus >> (32 * (half - 1))
+    xy = torch.randint(-(1 << 31), 1 << 31, (26 * n, fq.L), dtype=torch.int32, device=dev)
+    xy[:, half - 1] &= (1 << (top.bit_length() - 1)) - 1
+    xy[:, fq.L - 1] &= (1 << (top.bit_length() - 1)) - 1
     table = msm.FixedBaseTable(xy, 10, 26, n)
     layout = fold_layout(torch, table, FOLD_JOBS, 11)
     windows = tuple(torch.as_tensor(random_elements(np, rng, fq.CTX, 26), device=dev)[:, None]
@@ -214,16 +223,16 @@ def _kernel_device_times(torch, reps: int = 20) -> dict:
         "field_inv (fr, 1 element)": lambda: bi.inv_kernel(fr.CTX, a[5:6]),
         "field_inv (fq, 1 element)": lambda: bi.inv_kernel(fq.CTX, fq_table[5:6]),
         "field_inv (fq, 25 x 2^16)": lambda: bi.inv_kernel(fq.CTX, fq_table),
-        "ntt_block_stages": lambda: ntt.block_stages_kernel(x, tw, ntt.BLOCK_LOG2, 16),
-        "ntt_cross_stage": lambda: ntt.cross_stage_kernel(x, tw, 15),
+        "ntt_block_stages": lambda: ntt.block_stages_kernel(x, tw, ntt.BLOCK_LOG2, log_t),
+        "ntt_cross_stage": lambda: ntt.cross_stage_kernel(x, tw, log_t - 1),
         "g1_add (2^16 points)": lambda: curve.add_kernel(p, q),
         "g1_add (1539 points, the scans)": lambda: curve.add_kernel(*scans),
         "g1_double (2^16 points)": lambda: curve.double_kernel(p),
         "bucket_fold (largest fold of the prove)": lambda: curve.bucket_fold_kernel(xy, layout),
         "bucket_fold (classic [16384, 128])": lambda: curve.bucket_fold_kernel(xy_n, classic),
         "combine_windows (c=10, W=26)": lambda: curve.combine_windows_kernel(windows, 10),
-        "scalar_mul_batch (2 points)": lambda: cd.scalar_mul_batch(*ladder[2], 255),
-        "scalar_mul_batch (512 points)": lambda: cd.scalar_mul_batch(*ladder[512], 255),
+        "scalar_mul_batch (2 points)": lambda: cd.scalar_mul_batch(*ladder[2], P.FR_BITS),
+        "scalar_mul_batch (512 points)": lambda: cd.scalar_mul_batch(*ladder[512], P.FR_BITS),
         "shared ladder (2 one-point items, c=10)": lambda: msm._shared_ladder(table, tails),
     }
     out = {}
@@ -259,7 +268,7 @@ def main() -> int:
         return 1
 
     from chip_smoke import DummyCircuit, nvidia_smi_line
-    from marlin_tpu_torch.fields import bls12_381 as P
+    from marlin_tpu_torch.fields import active as P
     from marlin_tpu_torch.ops import cuda
     from marlin_tpu_torch.snark.marlin import Marlin
     from marlin_tpu_torch.utils import profiling
@@ -270,7 +279,7 @@ def main() -> int:
     a, b = rng.rand_fr(), rng.rand_fr()
     circ = DummyCircuit(a, b, num_variables=10, num_constraints=n)
     rec = {"device": torch.cuda.get_device_name(0), "nvidia_smi": nvidia_smi_line(),
-           "num_constraints": n}
+           "curve": P.CURVE_NAME, "num_constraints": n}
 
     t = time.perf_counter()
     srs = Marlin.universal_setup(n, n, 3 * n, rng, device="cuda")
