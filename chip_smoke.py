@@ -51,7 +51,23 @@ Phases, each printing one line of JSON:
 9. sonic   — `MarlinSonic` on `DummyCircuit` at 2^11 on the CPU and on the
    card (equal proof bytes), then at 2^14 on the card: the proof verifies
    at 759 B, with no host MSM call;
-10. bn254, synthetic_lowadic, bls12_377 — each curve in a process of its
+10. serial — the main path's SRS, prover key (with its SRS and without) and
+   verifier key saved (snark/serial.py) and loaded on the card, with the
+   seconds of each beside main's setup and index: the load's power check
+   launches kernel 1's Fq products and add, and is timed against the JAX
+   package's host-int check of the same powers; the loaded keys prove
+   main's bytes, which the loaded verifier key accepts; a limb >= 2^16, a
+   non-affine Z, a residue >= q, an off-curve power, a flipped G2
+   coordinate and a commitment off the curve each raise ValueError;
+11. sharded — the 2^14 prove under a mesh of four shards (`mesh=`: four
+   cards where the machine has them, else the one card four times) with
+   main's bytes, launching kernels 1, 2, 3(a), 4, 5 and 6 at shard shapes
+   (no 3(b): the four-step's row and column transforms fit in one block of
+   3(a)) and no host MSM; one steady single-device and one steady sharded
+   prove; a 2^16 four-step NTT (both variants, forward and inverse) and the
+   three MSM bodies (point shards at 2^16 over 4, window blocks at 2^12
+   over 4, the ladder at 2^12 over 8) equal to the single-device results;
+12. bn254, synthetic_lowadic, bls12_377 — each curve in a process of its
    own (`--curve`, with `MARLIN_TPU_CURVE` set; the build phase compiled its
    library beside BLS12-381's): its main path on the card (`DummyCircuit`
    at 2^14, at 2^11 for BLS12-377: setup with the G1
@@ -66,8 +82,9 @@ Phases, each printing one line of JSON:
    BN254 at 2^10, synthetic_lowadic at 2^11 under
    MARLIN_TPU_FR_TWO_ADICITY_CAP = 10, so both domains are mixed, and
    BLS12-377's main proof at 2^11); and for BN254 a MarlinSonic prove at
-   2^11;
-11. test_wide750 — a 750-bit field with no curve (24-word Fr, no Fq, no
+   2^11; and its SRS, lean prover key and verifier key round-tripped as in
+   phase serial (no full key, no tamper cases);
+13. test_wide750 — a 750-bit field with no curve (24-word Fr, no Fq, no
    G1), in a process of its own like the curves above (its library holds
    the field and NTT kernels only, and refuses an Fq call): its AHP at
    2^14 on the card as tests/test_wide750.py drives it (`run_ahp`: index,
@@ -1398,6 +1415,286 @@ def phase_sonic(torch) -> dict:
 
 
 # --------------------------------------------------------------------------
+# archives (snark/serial.py) and the mesh layer (parallel/)
+
+
+def host_power_check(arrays: tuple) -> None:
+    """The JAX package's load-time power check in host Python ints
+    (marlin_tpu/snark/serial.py:150), beside which the card's is timed:
+    limbs below 2^16, Z in {0, one}, residues below q, y^2 = x^3 + b."""
+    import numpy as np
+
+    from marlin_tpu_torch.fields import active as P
+    from marlin_tpu_torch.ops.limbs import limbs_to_ints
+
+    q = P.Q_MODULUS
+    rinv, one = pow(P.FQ_MONT_R, -1, q), P.FQ_MONT_R % q
+    if any((np.asarray(a) >> 16).any() for a in arrays):
+        raise ValueError("archive limb out of range (>= 2^16)")
+    xs, ys, zs = (limbs_to_ints(np.asarray(a)) for a in arrays)
+    for x_m, y_m, z_m in zip(xs, ys, zs):
+        if z_m == 0:
+            continue
+        if z_m != one:
+            raise ValueError("non-affine Z in archive")
+        if x_m >= q or y_m >= q:
+            raise ValueError("coordinate residue out of range")
+        x, y = x_m * rinv % q, y_m * rinv % q
+        if (y * y - x * x % q * x - P.CURVE_B) % q:
+            raise ValueError("off-curve point in archive")
+
+
+def _tampered(np, src: str, dst: str, edit) -> str:
+    """A copy of the archive `src` at `dst` with `edit(arrays, meta)` applied."""
+    with np.load(src) as z:
+        arrays = {k: z[k].copy() for k in z.files if k != "meta"}
+        meta = json.loads(str(z["meta"]))
+    edit(arrays, meta)
+    np.savez(dst, meta=json.dumps(meta), **arrays)
+    return dst
+
+
+def serial_roundtrip(torch, np, state: dict, label: str, tamper: bool) -> dict:
+    """The main path's SRS, lean prover key (no SRS) and verifier key saved
+    and loaded on the card: the load's on-curve check launches kernel 1's
+    Fq products and add; the loaded keys prove main's bytes, which the
+    loaded verifier key accepts.  With `tamper` (BLS12-381's phase
+    `serial`), the full prover key (its SRS embedded) round-trips too, and
+    each tampered archive (a limb >= 2^16, a non-affine Z, a residue >= q,
+    an off-curve power, a flipped G2 coordinate, a commitment off the
+    curve) raises ValueError on the card.  The other curves' processes skip
+    the full key: it holds the SRS and the lean key again, and its zlib
+    write takes 8-11 s a curve."""
+    from marlin_tpu_torch.fields import active as P
+    from marlin_tpu_torch.ops import cuda, fq
+    from marlin_tpu_torch.snark import serial
+    from marlin_tpu_torch.snark.marlin import Marlin
+
+    pk, vk = state["pk"], state["vk"]
+    d = os.path.join(SMOKE_DIR, f"serial_{label}")
+    os.makedirs(d, exist_ok=True)
+    paths = {k: os.path.join(d, f"{k}.npz") for k in ("srs", "pk", "lean", "vk") if tamper or k != "pk"}
+    rec = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        rec[f"{name}_s"] = time.perf_counter() - t
+        return res
+
+    pp = pk.committer_key.pp
+    timed("save_srs", lambda: serial.save_srs(pp, paths["srs"]))
+    if tamper:
+        timed("save_pk", lambda: serial.save_index_pk(pk, paths["pk"]))
+    timed("save_lean", lambda: serial.save_index_pk(pk, paths["lean"], include_srs=False))
+    timed("save_vk", lambda: serial.save_index_vk(vk, paths["vk"]))
+    rec["archive_mb"] = {k: os.path.getsize(v) / 1e6 for k, v in paths.items()}
+    cuda.reset_launches()
+    srs = timed("load_srs", lambda: serial.load_srs(paths["srs"], device=DEV))
+    rec["load_srs_launches"] = {f"{f}.{op}": v for (f, op), v in sorted(cuda.BINOP_LAUNCHES.items())}
+    require(cuda.BINOP_LAUNCHES.get(("fq", "mul"), 0) >= 6 and cuda.BINOP_LAUNCHES.get(("fq", "add"), 0) >= 2,
+            f"{label}: the load's on-curve check ran no Fq kernel: {rec['load_srs_launches']}")
+    require(all(torch.equal(a, b) for a, b in zip(srs.powers_of_g, pp.powers_of_g)), f"{label}: loaded powers differ")
+    keys = {}
+    if tamper:
+        keys["pk"] = timed("load_pk", lambda: serial.load_index_pk(paths["pk"], device=DEV))
+    keys["lean"] = timed("load_lean", lambda: serial.load_index_pk(paths["lean"], srs=srs, device=DEV))
+    vk2 = timed("load_vk", lambda: serial.load_index_vk(paths["vk"], device=DEV))
+    require(vk2.to_bytes() == vk.to_bytes(), f"{label}: the loaded verifier key differs")
+    for name, key in keys.items():
+        with contextlib.redirect_stdout(io.StringIO()):
+            proof = timed(f"prove_{name}", lambda: Marlin.prove(key, state["circ"], copy.deepcopy(state["rng"]),
+                                                               device=DEV))
+        require(proof.to_bytes() == state["proof"], f"{label}: the proof from the loaded {name} differs from main's")
+    require(Marlin.verify(vk2, state["public"], proof, copy.deepcopy(state["rng"]), device=DEV),
+            f"{label}: the loaded verifier key rejects the proof")
+    # the power check alone: on the card (two host reads of flags) and in host ints
+    rec["check_card_ms"] = time_ms(torch, lambda: serial._validate_powers_on_curve(srs.powers_of_g, "srs"),
+                                   reps=5, warmup=1)
+    with np.load(paths["srs"]) as z:
+        arrays = tuple(z[f"pg_{a}"] for a in "xyz")
+    t = time.perf_counter()
+    host_power_check(arrays)
+    rec["check_host_ms"] = (time.perf_counter() - t) * 1e3
+    rec["check_points"] = int(arrays[0].shape[0])
+    rec.update(bytes_equal=True, verifies=True)
+    if not tamper:
+        return rec
+
+    q = P.Q_MODULUS
+
+    def limb(a, m):
+        a["pg_x"][2, 0] = 1 << 16
+
+    def z(a, m):
+        a["pgg_z"][5] = a["pgg_x"][5]
+
+    def residue(a, m):
+        x = sum(int(v) << (16 * i) for i, v in enumerate(a["pg_x"][1]))
+        a["pg_x"][1] = [((x + q) >> (16 * i)) & 0xFFFF for i in range(fq.L)]
+
+    def off_curve(a, m):
+        a["pg_y"][3] = a["pg_y"][4]
+
+    def beta_h(a, m):
+        m["beta_h"][0][0] = int(m["beta_h"][0][0]) ^ 1
+
+    def comm(a, m):
+        m["index_comms"][0]["comm"][0] = int(m["index_comms"][0]["comm"][0]) ^ 1
+
+    cases = {"limb": (limb, "srs", "limb out of range"), "z": (z, "srs", "non-affine Z"),
+             "residue": (residue, "srs", "residue out of range"), "off_curve": (off_curve, "srs", "off-curve"),
+             "beta_h": (beta_h, "srs", "beta_h"), "comm": (comm, "vk", "index_comm")}
+    raised = {}
+    for name, (edit, kind, want) in cases.items():
+        path = _tampered(np, paths[kind], os.path.join(d, f"tampered_{name}.npz"), edit)
+        load = serial.load_srs if kind == "srs" else serial.load_index_vk
+        try:
+            load(path, device=DEV)
+            raised[name] = None
+        except ValueError as e:
+            raised[name] = str(e)
+        require(raised[name] is not None and want in raised[name], f"{label}: tampered {name}: {raised[name]}")
+    rec["tamper"] = raised
+    return rec
+
+
+def phase_serial(torch, np, main_rec: dict, state: dict) -> dict:
+    """Phase `serial`: the 2^14 main path's archives round-trip on the card
+    (`serial_roundtrip`, with the tamper cases), beside main's setup and
+    index seconds."""
+    rec = serial_roundtrip(torch, np, state, "bls12_381", tamper=True)
+    rec.update(main_setup_s=main_rec["setup_s"], main_index_s=main_rec["index_s"])
+    rec["load_s"] = rec["load_srs_s"] + rec["load_pk_s"] + rec["load_vk_s"]
+    return rec
+
+
+def mesh_of(torch, k: int):
+    """A one-process mesh of k shards: k distinct cards where the machine has
+    them, else the one card k times."""
+    from marlin_tpu_torch.parallel.multihost import make_mesh
+
+    count = torch.cuda.device_count()
+    devs = [torch.device("cuda", i) for i in range(k)] if count >= k else [torch.device("cuda", 0)] * k
+    return make_mesh(devices=devs)
+
+
+# the four-step NTT's size, and each MSM body's points and shards
+SHARD_NTT_N = 1 << 16
+SHARD_MSM_BODIES = (("point", 1 << 16, 4), ("window_block", 1 << 12, 4), ("ladder", 1 << 12, 8))
+# the kernels the mesh prove must launch.  Not kernel 3(b): the four-step
+# row and column transforms of the prove's 2^12-2^17-point NTTs have
+# 2^6-2^9 points, inside one block of kernel 3(a) (2^10)
+SHARD_KERNELS = ("field_binop", "field_inv", "ntt_block_stages", "g1_add", "bucket_fold", "combine_windows")
+
+
+def phase_sharded(torch, np, state: dict) -> dict:
+    """Phase `sharded`: the 2^14 prove under a mesh of four shards, with
+    main's bytes and every shard kernel launched (kernels 1, 2, 3(a), 4, 5
+    and 6; no 3(b), see SHARD_KERNELS); one steady single-device and one sharded prove; a 2^16
+    four-step NTT (both variants, forward and inverse) and the MSM bodies —
+    point shards (2^16 over 4), window blocks (2^12 over 4), the ladder
+    (2^12 over 8) — against the single-device results."""
+    from marlin_tpu_torch.ops import cuda, fr, msm, ntt
+    from marlin_tpu_torch.ops import curve_device as cd
+    from marlin_tpu_torch.parallel import msm_sharded, ntt_sharded
+    from marlin_tpu_torch.parallel.multihost import axis_devices
+    from marlin_tpu_torch.snark.data_structures import Proof
+    from marlin_tpu_torch.snark.marlin import Marlin
+    from marlin_tpu_torch.utils.rand import ZkRng
+
+    mesh = mesh_of(torch, 4)
+    rec = {"mesh": [str(d) for d in axis_devices(mesh, None)]}
+    pk, circ = state["pk"], state["circ"]
+    reruns = []
+    exact = msm.msm_pippenger
+
+    def counting_exact(*args, **kwargs):  # a spill's or a fold flag's exact rerun
+        reruns.append(bool(kwargs.get("exact")))
+        return exact(*args, **kwargs)
+
+    def prove(sharded: bool):
+        rng = copy.deepcopy(state["rng"])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            proof = Marlin.prove(pk, circ, rng, device=DEV, mesh=mesh if sharded else None)
+        torch.cuda.synchronize()
+        return proof.to_bytes(), time.perf_counter() - t
+
+    torch.cuda.synchronize()
+    cuda.reset_launches()
+    msm.msm_pippenger = counting_exact
+    try:
+        with counted_msm_calls() as seen, watched_transforms() as watched:
+            blob, rec["first_prove_s"] = prove(sharded=True)
+    finally:
+        msm.msm_pippenger = exact
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    shapes = sorted({tuple(t["shape"]) for t in watched["transforms"]})
+    rec.update(launches=launches, transform_shapes=[list(s) for s in shapes], msm_jobs=seen["jobs"],
+               host_msm_calls=seen["host_calls"], exact_reruns=sum(reruns), classic_jobs=len(reruns) - sum(reruns))
+    require(blob == state["proof"], "sharded: the mesh prove's bytes differ from main's")
+    require(Marlin.verify(state["vk"], state["public"], Proof.from_bytes(blob), copy.deepcopy(state["rng"]),
+                          device=DEV), "sharded: the mesh proof does not verify")
+    for k in SHARD_KERNELS:
+        require(launches[k] > 0, f"sharded: kernel {k} was not launched by the mesh prove")
+    require(seen["host_calls"] == 0, f"sharded: {seen['host_calls']} host MSM calls")
+    require(any(s[-1] == 1 << 7 for s in shapes) and any(s[-1] == 1 << 8 for s in shapes),
+            f"sharded: no transform at the four-step shapes of 2^14 and 2^16: {shapes}")
+    steady = {"sharded": [], "single": []}
+    for sharded in (False, True):
+        b, secs = prove(sharded)
+        require(b == state["proof"], "sharded: a steady prove's bytes differ")
+        steady["sharded" if sharded else "single"].append(secs)
+    rec["steady_prove_s"] = steady
+
+    # the four-step NTT at 2^16 against the single-device transform
+    n = SHARD_NTT_N
+    x = fr.from_canonical_limbs(ZkRng(300).rand_fr_limbs(n), DEV)
+    ntts = {}
+    for inverse in (False, True):
+        want = ntt.transform(x, inverse)
+        for name, fn in (("4step", ntt_sharded.ntt_4step), ("resident", ntt_sharded.ntt_4step_resident)):
+            cuda.reset_launches()
+            got = fn(x, mesh, inverse=inverse)
+            torch.cuda.synchronize()
+            require(torch.equal(got, want), f"sharded: the {name} NTT (inverse={inverse}) differs")
+            ntts[f"{name}_{'inv' if inverse else 'fwd'}"] = {
+                "launches": {k: v for k, v in cuda.LAUNCHES.items() if v},
+                "ms": time_ms(torch, lambda: fn(x, mesh, inverse=inverse), reps=5, warmup=1)}
+        ntts[f"single_{'inv' if inverse else 'fwd'}_ms"] = time_ms(torch, lambda: ntt.transform(x, inverse),
+                                                                   reps=5, warmup=1)
+    rec[f"ntt_{n}"] = ntts
+
+    # the three MSM bodies against the single-device MSM on the SRS powers
+    powers = pk.committer_key.pp.powers_of_g
+    bodies = {}
+    for body, size, k in SHARD_MSM_BODIES:
+        pts = tuple(c[:size] for c in powers)
+        s = fr.from_canonical_limbs(ZkRng(400 + k + size).rand_fr_limbs(size), DEV)
+        m = mesh if k == 4 else mesh_of(torch, k)
+        want = cd.to_affine_ints(msm.msm(pts, s))
+        cuda.reset_launches()
+        got, spill = msm_sharded.msm_sharded_core(pts, s, m)
+        torch.cuda.synchronize()
+        bl = {kk: v for kk, v in cuda.LAUNCHES.items() if v}
+        require(int(spill) == 0, f"sharded: the {body} body spilled {int(spill)}")
+        require(cd.to_affine_ints(got) == want, f"sharded: the {body} body differs from the single-device MSM")
+        kernel = "g1_scalar_mul" if body == "ladder" else "bucket_fold"
+        require(bl.get(kernel, 0) > 0, f"sharded: the {body} body launched no {kernel}: {bl}")
+        bodies[body] = {"n": size, "shards": k, "launches": bl,
+                        "ms": time_ms(torch, lambda: msm_sharded.msm_sharded_core(pts, s, m), reps=3, warmup=1),
+                        "single_ms": time_ms(torch, lambda: msm.msm(pts, s), reps=3, warmup=1)}
+    rec["msm_bodies"] = bodies
+    rec.update(bytes_equal=True, verifies=True)
+    return rec
+
+
+# --------------------------------------------------------------------------
 # the other curves.  The curve is chosen once a process (MARLIN_TPU_CURVE,
 # fields/active.py), so each runs in a process of its own: `--curve NAME`
 # runs that curve's phases, `--cpu-proof` its CPU reference proof.  The
@@ -1935,7 +2232,8 @@ def curve_main(torch, curve: str) -> tuple:
             f"{curve}: {cuda.LAUNCHES['combine_windows']} combines for {len(seen_c['jobs'])} MSM jobs")
     require(seen_c["host_calls"] == 0, f"{curve}: the classic prove called the host MSM")
     rec["classic_bytes_equal"] = True
-    state = {"pk": pk, "vk": vk, "proof": blob, "public": public, "watched": watched, "jobs": seen["jobs"]}
+    state = {"pk": pk, "vk": vk, "proof": blob, "public": public, "watched": watched, "jobs": seen["jobs"],
+             "circ": circ, "rng": rng_at_prove}
     return rec, state
 
 
@@ -2051,6 +2349,9 @@ def curve_process_main(curve: str, cpu_proof: str, out: str) -> int:
         main_rec, state = curve_main(torch, curve)
         emit({"phase": "main", **main_rec})
 
+        phase = "serial"
+        emit({"phase": "serial", "curve": curve, **serial_roundtrip(torch, np, state, curve, tamper=False)})
+
         phase = "kernels"
         pp = state["pk"].committer_key.pp
         set_curve_shapes(CURVES[curve]["log2"], main_rec["K"], main_rec["prove_inversions"],
@@ -2154,6 +2455,12 @@ def main() -> int:
 
         phase = "sonic"
         emit({"phase": "sonic", **phase_sonic(torch)})
+
+        phase = "serial"
+        emit({"phase": "serial", **phase_serial(torch, np, main_rec, state)})
+
+        phase = "sharded"
+        emit({"phase": "sharded", **phase_sharded(torch, np, state)})
 
         for curve in CURVES:
             phase = curve

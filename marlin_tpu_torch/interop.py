@@ -176,7 +176,9 @@ def index(ix: dict, device) -> Index:
 
 
 def index_keys(pk: dict, device) -> tuple:
-    """(IndexProverKey, IndexVerifierKey) from a plain index prover key."""
+    """(IndexProverKey, IndexVerifierKey) from a plain index prover key; its
+    committer key's `pp` may also be a `kzg.UniversalParams` already on
+    `device` (an SRS loaded apart, `snark/serial.py`)."""
     from .snark import kzg, sonic
     from .snark.data_structures import IndexProverKey
 
@@ -185,8 +187,9 @@ def index_keys(pk: dict, device) -> tuple:
     ck = pk["committer_key"]
     is_sonic = isinstance(vk.verifier_key, sonic.SonicVerifierKey)
     key_cls = sonic.SonicCommitterKey if is_sonic else kzg.CommitterKey
+    pp = ck["pp"]
     committer_key = key_cls(
-        pp=universal_params(ck["pp"], device),
+        pp=pp if isinstance(pp, kzg.UniversalParams) else universal_params(pp, device),
         supported_degree=int(ck["supported_degree"]),
         degree_bounds=[int(b) for b in ck["degree_bounds"]],
         hiding_bound=int(ck["hiding_bound"]),

@@ -1,8 +1,8 @@
 """Multi-scalar multiplication: the classic Pippenger, the fixed-base table
 MSM and the host route.
 
-Port of `marlin_tpu/ops/msm.py` on one device.  Three routes, chosen by the
-caller's tensors and by whether it has a table:
+Port of `marlin_tpu/ops/msm.py`.  On one device, three routes, chosen by
+the caller's tensors and by whether it has a table:
 
 * The classic Pippenger (`msm_pippenger`, msm.py:219-302, and its
   fully-on-device twin `pippenger_device`, :445-492): unsigned radix-2^c
@@ -32,6 +32,12 @@ caller's tensors and by whether it has a table:
   (`_host_msm`).  The route follows the tensors' device alone; the port does not read the JAX
   package's `MARLIN_TPU_HOST_MSM` switch (msm.py:1035, :1101-1112), which
   would move the card's MSMs to the host.
+
+Under a mesh (parallel/context.py) `msm` and `msm_many` route batches of
+at least `MSM_MIN_SHARDED` points to the distributed Pippenger
+(parallel/msm_sharded.py, `_sharded_msm_or_none`), whose window-sharded
+body folds its block of windows here (`pippenger_device_window_block`),
+and the table is passed over.
 
 Correctness contract (msm.py:197-216): a bucket that overflows its
 capacity, and a fast mixed add that met P == Q, each leave a nonzero flag
@@ -79,6 +85,27 @@ def _host_msm(points: cd.Point, scalars_mont: torch.Tensor) -> cd.Point:
     return cd.from_affine_ints([res], scalars_mont.device)
 
 
+def _sharded_msm_or_none(points: cd.Point, scalars_mont: torch.Tensor):
+    """The distributed MSM (parallel/msm_sharded.py) when a mesh is active
+    and the batch holds at least `MSM_MIN_SHARDED` points, padded with
+    identity points and zero scalars to divide over the mesh (msm.py:1000);
+    else None."""
+    from ..parallel import context as pctx
+
+    ctx = pctx.current()
+    n = points[0].shape[0]
+    if ctx is None or n < pctx.MSM_MIN_SHARDED:
+        return None
+    from ..parallel.msm_sharded import msm_sharded
+
+    pad = -n % ctx.num_devices
+    if pad:
+        ident = cd.identity((pad,), points[0].device)
+        points = tuple(torch.cat([points[i], ident[i]]) for i in range(3))
+        scalars_mont = torch.nn.functional.pad(scalars_mont, (0, 0, 0, pad))
+    return msm_sharded(points, scalars_mont, ctx.mesh, ctx.axis)
+
+
 def msm(
     points: cd.Point, scalars_mont: torch.Tensor, c: int | None = None, exact: bool = False
 ) -> cd.Point:
@@ -88,7 +115,11 @@ def msm(
     scalars_mont: [n, 16] Fr Montgomery limbs.  Points on the card run on
     the card: the ladder below `_PIPPENGER_MIN` points, else the classic
     Pippenger, which this call reruns with exact=True when a flag of its own
-    fired (msm.py:1048-1076).  Points on the CPU take the host route."""
+    fired (msm.py:1048-1076).  Points on the CPU take the host route.
+    Under a mesh (parallel/context.py) a large enough batch runs sharded."""
+    out = _sharded_msm_or_none(points, scalars_mont)
+    if out is not None:
+        return out
     if not points[0].is_cuda:
         return _host_msm(points, scalars_mont)
     if points[0].shape[0] < _PIPPENGER_MIN:
@@ -112,19 +143,33 @@ def msm_many(powers: cd.Point, jobs: list, exact: bool = False, table=None) -> l
     classic Pippenger when the batch holds at least `_PIPPENGER_MIN` points,
     else all jobs on one shared ladder with a tree reduction per job
     (msm.py:1113-1139); powers on the CPU take the host route per job.
-    Fast-fold flags queue in `_FOLD_FLAGS` for the caller."""
+    Under a mesh (parallel/context.py) the table is passed over and, in a
+    batch of at least `_PIPPENGER_MIN` points, each large enough job runs
+    sharded (msm.py:1096-1121).  Fast-fold flags queue in `_FOLD_FLAGS`
+    for the caller."""
+    from ..parallel import context as pctx
+
     if not jobs:
         return []
-    if table is not None:
+    if table is not None and pctx.current() is None:
         return msm_fixed_many(table, jobs, exact=exact)
 
     def points_of(off, scal):
         return tuple(powers[i][off : off + scal.shape[0]] for i in range(3))
 
-    if not powers[0].is_cuda:
-        return [_host_msm(points_of(off, scal), scal) for off, scal in jobs]
-    if sum(scal.shape[0] for _, scal in jobs) >= _PIPPENGER_MIN:
-        return [msm_pippenger(points_of(off, scal), scal, exact=exact) for off, scal in jobs]
+    big = sum(scal.shape[0] for _, scal in jobs) >= _PIPPENGER_MIN
+
+    def one_job(off, scal):
+        pts = points_of(off, scal)
+        out = _sharded_msm_or_none(pts, scal) if big else None
+        if out is not None:
+            return out
+        if not powers[0].is_cuda:
+            return _host_msm(pts, scal)
+        return msm_pippenger(pts, scal, exact=exact)
+
+    if big or not powers[0].is_cuda:
+        return [one_job(off, scal) for off, scal in jobs]
     parts = [points_of(off, scal) for off, scal in jobs]
     pts = tuple(torch.cat([p[i] for p in parts]) for i in range(3))
     scal = torch.cat([s for _, s in jobs])
@@ -535,26 +580,49 @@ def msm_pippenger(
 
 
 def pippenger_device(points: cd.Point, scal16: torch.Tensor, c: int):
-    """The classic Pippenger with no copy to the host (msm.py:445-492).
+    """The classic Pippenger with no copy to the host (msm.py:445-492): all
+    the windows as one block (`pippenger_device_window_block`), combined by
+    kernel 6.
 
     points: [n] batch in affine form (Z in {0, 1}); scal16: canonical
-    [n, 16] limbs.  The top window folds apart with its own narrow bucket
-    space (`_classic_top_shape`); every other window at ~2x the mean load.
-    -> ([1] point, 0-d count of spilled entries and flagged lanes): the
-    caller reruns on an exact path when the count is not 0."""
+    [n, 16] limbs.  -> ([1] point, 0-d count of spilled entries and flagged
+    lanes): the caller reruns on an exact path when the count is not 0."""
+    num_windows = _classic_shape(points[0].shape[0], c)[0]
+    stacked, spill = pippenger_device_window_block(points, scal16, c, num_windows, 0)
+    return curve.combine_windows(stacked, c), spill
+
+
+def pippenger_device_window_block(points: cd.Point, scal16: torch.Tensor, c: int, wpd: int, w0: int):
+    """Window sums T_w of the `wpd` windows from `w0` over ALL the points
+    (msm.py:380): the window-sharded distributed MSM gives each device a
+    block of windows instead of a shard of points, so every window's bucket
+    statistics are the single-device ones however small n/D is;
+    `pippenger_device` takes every window as one block.
+
+    points: [n] batch in affine form; scal16: canonical [n, 16] limbs.
+    -> ((X, Y, Z) of [wpd, 1, L], 0-d count of spilled entries and flagged
+    lanes).  Windows past the last one are the identity; the top window
+    folds apart with its own narrow bucket space (`_classic_top_shape`)."""
     n = points[0].shape[0]
     num_windows, nb, cap = _classic_shape(n, c)
-    nb_top, cap_top = _classic_top_shape(n, c, num_windows)
+    top = num_windows - 1
+    own = range(w0, min(w0 + wpd, num_windows))
     xy = curve.pack_points_xy(points[0], points[1])
-    d = _window_digits(points, scal16, c, range(num_windows))
-    layouts, spill = _window_layout_device(d[:-1], nb, cap)
-    windows, flags = _fold_windows(xy, layouts, exact=False)
-    top_layout, top_spill = _window_layout_device(d[-1:], nb_top, cap_top)
-    top, top_flags = _fold_windows(xy, top_layout, exact=False)
-    windows += top
-    spill = spill + top_spill + sum(f.to(spill.dtype) for f in flags + top_flags)
-    stacked = tuple(torch.stack([w[i] for w in windows]) for i in range(3))
-    return curve.combine_windows(stacked, c), spill
+    spill = torch.zeros((), dtype=torch.int64, device=points[0].device)
+    sums = {}
+    groups = [([w for w in own if w != top], nb, cap)]
+    if top in own:
+        groups.append(([top], *_classic_top_shape(n, c, num_windows)))
+    for ws, nbw, capw in groups:
+        if not ws:
+            continue
+        layouts, s = _window_layout_device(_window_digits(points, scal16, c, ws), nbw, capw)
+        folded, flags = _fold_windows(xy, layouts, exact=False)
+        spill = spill + s + sum(f.to(spill.dtype) for f in flags)
+        sums.update(zip(ws, folded))
+    ident = cd.identity((1,), points[0].device)
+    windows = [sums.get(w, ident) for w in range(w0, w0 + wpd)]
+    return tuple(torch.stack([w[i] for w in windows]) for i in range(3)), spill
 
 
 def _job_digits(table: FixedBaseTable, scal16: torch.Tensor, offsets: list):

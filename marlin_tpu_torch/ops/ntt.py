@@ -27,6 +27,11 @@ over j1 is one broadcast kernel-1 product of [n1, n1, n2] and one `modsum`
 over j1, not n1^2 launches (at n1 = 81 and n2 = 2^9 that product holds
 3.4M elements, 0.6 GB of 24-word limbs).  The plain path is the same
 sequence through the plain twins.
+
+Under a mesh (parallel/context.py) `ntt` and `intt` route a power-of-two
+size of at least `NTT_MIN_SHARDED` whose four-step factors divide over
+the mesh to the four-step NTT (parallel/ntt_sharded.py), and
+`ntt_many`/`intt_many` then transform one polynomial at a time.
 """
 
 from __future__ import annotations
@@ -300,6 +305,34 @@ def _pad_for(coeffs: torch.Tensor, n: int) -> torch.Tensor:
     return coeffs
 
 
+def _sharded_or_none(x: torch.Tensor, inverse: bool):
+    """The four-step NTT over the mesh (parallel/ntt_sharded.py) of a
+    [n, L] vector when a mesh is active, n is a power of two of at least
+    `NTT_MIN_SHARDED` and both four-step factors divide over the mesh
+    (ntt.py:310); else None."""
+    from ..parallel import context as pctx
+
+    ctx = pctx.current()
+    n = x.shape[0]
+    if ctx is None or x.dim() != 2 or n < pctx.NTT_MIN_SHARDED or n & (n - 1):
+        return None
+    n1 = 1 << (_log2(n) // 2)
+    d = ctx.num_devices
+    if n1 % d or (n // n1) % d:
+        return None
+    from ..parallel.ntt_sharded import ntt_4step_resident
+
+    return ntt_4step_resident(x, ctx.mesh, ctx.axis, inverse=inverse)
+
+
+def _batchable(n: int, count: int) -> bool:
+    """Batch several transforms into one set of launches: a power of two,
+    and no mesh that would shard this size (ntt.py:267)."""
+    from ..parallel import context as pctx
+
+    return count > 1 and not (n & (n - 1)) and (pctx.current() is None or n < pctx.NTT_MIN_SHARDED)
+
+
 def ntt(coeffs: torch.Tensor, n: int | None = None) -> torch.Tensor:
     """Forward NTT: coefficients -> evaluations at [1, g, g^2, ...]; zero-pads
     to `n` (or the smallest domain that fits)."""
@@ -309,31 +342,34 @@ def ntt(coeffs: torch.Tensor, n: int | None = None) -> torch.Tensor:
         n = compute_size_of_domain(max(1, coeffs.shape[0]))
         if n is None:
             raise ValueError(f"no evaluation domain of size >= {coeffs.shape[0]}")
-    return transform(_pad_for(coeffs, n), inverse=False)
+    x = _pad_for(coeffs, n)
+    out = _sharded_or_none(x, False)
+    return out if out is not None else transform(x, inverse=False)
 
 
 def intt(evals: torch.Tensor) -> torch.Tensor:
     """Inverse NTT: evaluations on the size-n domain -> coefficients."""
-    return transform(evals, inverse=True)
+    out = _sharded_or_none(evals, True)
+    return out if out is not None else transform(evals, inverse=True)
 
 
 def ntt_many(polys: list, n: int) -> list:
     """Forward NTTs of several polynomials onto one size-n domain, batched
-    into one set of launches for a power of two, one transform a polynomial
-    for a mixed-radix size (the reference's `_batchable`, :267); either way
-    bit-identical to per-poly `ntt`."""
-    if n & (n - 1):
+    into one set of launches where `_batchable`, else one `ntt` a polynomial
+    (a mixed-radix size, or one the mesh shards); either way bit-identical
+    to per-poly `ntt`."""
+    if not _batchable(n, len(polys)):
         return [ntt(p, n) for p in polys]
     out = transform(torch.stack([_pad_for(p, n) for p in polys]), inverse=False)
     return list(out.unbind(0))
 
 
 def intt_many(evals: list) -> list:
-    """Inverse NTTs of several same-size evaluation vectors, batched for a
-    power of two, one at a time for a mixed-radix size."""
+    """Inverse NTTs of several same-size evaluation vectors, batched where
+    `_batchable`, else one at a time."""
     n = evals[0].shape[0]
     assert all(e.shape[0] == n for e in evals)
-    if n & (n - 1):
+    if not _batchable(n, len(evals)):
         return [intt(e) for e in evals]
     return list(transform(torch.stack(evals), inverse=True).unbind(0))
 

@@ -284,8 +284,12 @@ def _ensure_msm_table(pp: UniversalParams):
     on the CPU, whose MSMs take the host route, and where the classic
     Pippenger serves instead: with MARLIN_TPU_MSM_TABLE=0, or when the table
     would exceed MARLIN_TPU_MSM_TABLE_MB (default 2400).  Both are read at
-    every call."""
-    if pp.device.type != "cuda" or os.environ.get("MARLIN_TPU_MSM_TABLE") == "0":
+    every call.  None while a mesh is active: `msm_many` passes the table
+    over then, and runs the sharded MSM."""
+    from ..parallel import context as pctx
+
+    if (pp.device.type != "cuda" or os.environ.get("MARLIN_TPU_MSM_TABLE") == "0"
+            or pctx.current() is not None):
         return None
     table = getattr(pp, "_msm_table", None)
     if table is not None:

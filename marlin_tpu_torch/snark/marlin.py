@@ -128,10 +128,25 @@ class Marlin:
     # ---- prove -------------------------------------------------------------
 
     @classmethod
-    def prove(cls, index_pk: IndexProverKey, circuit, zk_rng: ZkRng, device=None) -> Proof:
-        """Reference src/lib.rs:151-311."""
+    def prove(
+        cls, index_pk: IndexProverKey, circuit, zk_rng: ZkRng, device=None, mesh=None
+    ) -> Proof:
+        """Reference src/lib.rs:151-311.
+
+        With `mesh` (a `parallel.multihost.Mesh` whose devices are all of
+        `device`'s type), every round NTT and commit MSM large enough runs
+        sharded over the mesh's devices (the four-step NTT and the
+        distributed Pippenger, marlin_tpu/snark/marlin.py:114-128); the
+        proof bytes are the single-device ones."""
         dev = resolve_device(device)
         _same_device(index_pk.index.device, dev, "the proving key")
+        if mesh is not None:
+            from ..parallel.context import use_mesh
+            from ..parallel.multihost import require_device_type
+
+            require_device_type(mesh.devices.flat, dev, "a prove")
+            with use_mesh(mesh):
+                return cls.prove(index_pk, circuit, zk_rng, device)
         with profiling.span("Marlin::Prover"):
             state = prover_mod.prover_init(index_pk.index, circuit)
             public_input = state.public_input()

@@ -491,6 +491,67 @@ def test_library_names_the_active_curve(dev):
 
 
 # --------------------------------------------------------------------------
+# a mesh of distinct cards: each shard's kernels launch on its own card
+
+
+@pytest.fixture
+def two_cards():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return [torch.device("cuda", 0), torch.device("cuda", 1)]
+
+
+def test_a_mesh_of_distinct_cards_gives_the_one_card_results(two_cards, monkeypatch):
+    """The four-step NTTs, the three MSM bodies (the ladder at 2^10 points,
+    window blocks at 2^12, point shards at 2^15) and a 2^10-constraint prove
+    over [cuda:0, cuda:1] equal the transform, the MSM and the proof bytes
+    on cuda:0 alone."""
+    from marlin_tpu_torch.fields import host_curve as hc
+    from marlin_tpu_torch.ops import curve_device as cd
+    from marlin_tpu_torch.ops import msm
+    from marlin_tpu_torch.parallel import context as pctx
+    from marlin_tpu_torch.parallel import msm_sharded, ntt_sharded
+    from marlin_tpu_torch.parallel.multihost import make_mesh
+    from marlin_tpu_torch.snark.marlin import Marlin
+    from marlin_tpu_torch.snark.r1cs import lc
+    from marlin_tpu_torch.utils.rand import test_rng as seeded_rng
+
+    mesh = make_mesh(devices=two_cards)
+    home = two_cards[0]
+    x = _elements(fr.CTX, 1 << 12, 5, home)
+    for inverse in (False, True):
+        want = ntt.transform(x, inverse)
+        assert torch.equal(ntt_sharded.ntt_4step(x, mesh, inverse=inverse), want)
+        assert torch.equal(ntt_sharded.ntt_4step_resident(x, mesh, inverse=inverse), want)
+
+    rng = np.random.default_rng(6)
+    r = fr.CTX.modulus
+    pts = msm.fixed_base_powers(hc.G1_GEN, [int.from_bytes(rng.bytes(40), "little") % r for _ in range(1 << 15)], home)
+    for n in (1 << 10, 1 << 12, 1 << 15):
+        s = fr.from_ints([int.from_bytes(rng.bytes(40), "little") % r for _ in range(n)], home)
+        part = tuple(c[:n] for c in pts)
+        want = cd.to_affine_ints(msm.msm(part, s))
+        assert cd.to_affine_ints(msm_sharded.msm_sharded(part, s, mesh)) == want
+
+    class Circuit:  # x*y = out, repeated
+        def generate_constraints(self, cs):
+            a = cs.new_witness_variable(lambda: 11)
+            b = cs.new_witness_variable(lambda: 13)
+            c = cs.new_input_variable(lambda: 143)
+            for _ in range((1 << 10) - 1):
+                cs.enforce_constraint(lc(a), lc(b), lc(c))
+
+    monkeypatch.setattr(pctx, "NTT_MIN_SHARDED", 1 << 8)
+    monkeypatch.setattr(pctx, "MSM_MIN_SHARDED", 1 << 8)
+    srs = Marlin.universal_setup(1 << 10, 1 << 10, 3 << 10, seeded_rng())
+    pk, vk = Marlin.index(srs, Circuit())
+    single = Marlin.prove(pk, Circuit(), seeded_rng())
+    sharded = Marlin.prove(pk, Circuit(), seeded_rng(), mesh=mesh)
+    assert sharded.to_bytes() == single.to_bytes()
+    assert Marlin.verify(vk, [143], sharded, seeded_rng())
+
+
+# --------------------------------------------------------------------------
 # the other curves, each in a process of its own (the curve is chosen once
 # a process): kernels 1 and 2 at both fields, and kernels 3-6 at small
 # shapes, each against its plain version

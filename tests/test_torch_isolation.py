@@ -43,6 +43,12 @@ def test_package_imports_neither_jax_nor_marlin_tpu():
         "import sys, marlin_tpu_torch, marlin_tpu_torch.interop\n"
         "from marlin_tpu_torch.snark.marlin import Marlin\n"
         "import marlin_tpu_torch.ops.mont, marlin_tpu_torch.ops.msm\n"
+        "import marlin_tpu_torch.snark.serial\n"
+        "import marlin_tpu_torch.parallel.context, marlin_tpu_torch.parallel.multihost\n"
+        "import marlin_tpu_torch.parallel.ntt_sharded, marlin_tpu_torch.parallel.msm_sharded\n"
+        "import importlib.util\n"
+        "spec = importlib.util.spec_from_file_location('pregen', 'tools/torch_pregen_caches.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))"
         " or m == 'marlin_tpu' or m.startswith('marlin_tpu.'))\n"
         "assert not bad, bad\n"
@@ -52,12 +58,20 @@ def test_package_imports_neither_jax_nor_marlin_tpu():
     assert res.returncode == 0, res.stderr[-2000:]
 
 
-def test_cpu_tensors_launch_no_kernel(cpu_keys):
-    _srs, pk, vk = cpu_keys
+def test_cpu_tensors_launch_no_kernel(cpu_keys, tmp_path):
+    from marlin_tpu_torch.parallel import context as pctx
+    from marlin_tpu_torch.parallel.multihost import make_mesh
+    from marlin_tpu_torch.snark import serial
+
+    srs, pk, vk = cpu_keys
     cuda.reset_launches()
     x = fr.from_ints(list(range(1, 65)), "cpu")
     fr.inv(fr.mul(x, x))
     ntt.intt(ntt.ntt(x, 64))
+    serial.save_srs(srs, str(tmp_path / "srs.npz"))
+    serial.load_srs(str(tmp_path / "srs.npz"), device="cpu")
+    with pctx.use_mesh(make_mesh(devices=[torch.device("cpu")] * 4)):
+        ntt.intt(ntt.ntt(fr.from_ints(list(range(1, 4097)), "cpu"), 4096))
     proof = Marlin.prove(pk, OneConstraint(), seeded_rng(), device="cpu")
     assert Marlin.verify(vk, [15], proof, seeded_rng(), device="cpu")
     assert all(v == 0 for v in cuda.LAUNCHES.values()), cuda.LAUNCHES
@@ -74,16 +88,28 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         bi.inv_kernel(fr.CTX, x)
 
 
-@pytest.mark.parametrize("entry", ["setup", "index", "prove", "verify"])
-def test_entry_points_without_device_need_the_card(cpu_keys, entry):
+@pytest.mark.parametrize("entry", [
+    "setup", "index", "prove", "verify",
+    "load_srs", "load_index_pk", "load_index_vk", "cached_srs", "make_mesh",
+])
+def test_entry_points_without_device_need_the_card(cpu_keys, entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device: the default device is valid here")
+    from marlin_tpu_torch.parallel.multihost import make_mesh
+    from marlin_tpu_torch.snark import serial
+
     srs, pk, vk = cpu_keys
+    path = str(tmp_path / "archive.npz")
     calls = {
         "setup": lambda: Marlin.universal_setup(32, 32, 96, seeded_rng()),
         "index": lambda: Marlin.index(srs, OneConstraint()),
         "prove": lambda: Marlin.prove(pk, OneConstraint(), seeded_rng()),
         "verify": lambda: Marlin.verify(vk, [15], None, seeded_rng()),
+        "load_srs": lambda: serial.save_srs(srs, path) or serial.load_srs(path),
+        "load_index_pk": lambda: serial.save_index_pk(pk, path) or serial.load_index_pk(path),
+        "load_index_vk": lambda: serial.save_index_vk(vk, path) or serial.load_index_vk(path),
+        "cached_srs": lambda: serial.cached_srs(40, seeded_rng(), cache_dir=str(tmp_path)),
+        "make_mesh": lambda: make_mesh(),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

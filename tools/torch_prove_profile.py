@@ -15,7 +15,8 @@ Builds the bench circuit (`DummyCircuit`, 2^log2 constraints, SRS sized by
   and the NTT stage kernels noting each launch's shape: the device time of
   each of their launches in the prove, by kernel and shape (the profiler's
   kernel events matched to the launches in stream order);
-* each kernel alone at the main path's largest shape (2^16 Fr elements,
+* each kernel alone at the main path's largest shape (2^16 Fr elements;
+  kernel 7 of the TPU package, `ops/mont.py::mont_mul`, at [4096, 16],
   and for the inversion also one Fr element, one Fq element and the table
   build's 25 x 2^16 Fq elements;
   2^16 points for the group law, and the bucket scans' 1,539; the prove's
@@ -39,7 +40,8 @@ once, one warm run of the prover's and the verifier's rounds and the
 linear combinations from that index (each step's seconds), one under
 `torch.profiler` (device time by kernel, their sum and the busy share), one
 with each inversion and NTT stage launch's device time by shape, and the
-binop and the inversion alone at the AHP's sizes.
+binop and the inversion alone at the AHP's sizes (and `mont_mul` at
+[4096, L]).
 
 The active curve (`MARLIN_TPU_CURVE`, default BLS12-381) sets the fields
 and the group: the kernels' shapes above are element and point counts, and
@@ -161,6 +163,8 @@ def _prove_launches_by_shape(torch, run) -> list:
 # (either template form the kernels have had: <FrTraits, 0> or <8, 0>)
 _KERNEL_SYMBOLS = {
     "field_binop (fr mul)": ("binop_kernel<FrTraits, 0>", "binop_kernel<8, 0>"),
+    # kernel 7 of the TPU package: an entry into kernel 1's Fr product
+    "mont_mul ([4096, 16], kernel 7)": ("binop_kernel<FrTraits, 0>", "binop_kernel<8, 0>"),
     "field_inv (fr)": ("inv_kernel<FrTraits>", "inv_kernel<8>"),
     "field_inv (fr, 1 element)": ("inv_kernel<FrTraits>", "inv_kernel<8>"),
     "field_inv (fq, 1 element)": ("inv_kernel<FqTraits>", "inv_kernel<12>"),
@@ -189,7 +193,7 @@ def _kernel_device_times(torch, reps: int = 20) -> dict:
     from chip_smoke import FOLD_JOBS, fold_layout, random_elements
     from marlin_tpu_torch.fields import active as P
     from marlin_tpu_torch.ops import bigint as bi
-    from marlin_tpu_torch.ops import curve, fq, fr, msm, ntt
+    from marlin_tpu_torch.ops import curve, fq, fr, mont, msm, ntt
     from marlin_tpu_torch.ops import curve_device as cd
 
     rng = np.random.default_rng(3)
@@ -227,6 +231,7 @@ def _kernel_device_times(torch, reps: int = 20) -> dict:
         ladder[m] = (tuple(c[:m].contiguous() for c in p), bi.from_mont(fr.CTX, sc))
     calls = {
         "field_binop (fr mul)": lambda: bi.binop_kernel("mul", fr.CTX, a, b),
+        "mont_mul ([4096, 16], kernel 7)": lambda: mont.mont_mul(a[:4096], b[:4096]),
         "field_inv (fr)": lambda: bi.inv_kernel(fr.CTX, a),
         "field_inv (fr, 1 element)": lambda: bi.inv_kernel(fr.CTX, a[5:6]),
         "field_inv (fq, 1 element)": lambda: bi.inv_kernel(fq.CTX, fq_table[5:6]),
@@ -248,12 +253,13 @@ def _kernel_device_times(torch, reps: int = 20) -> dict:
 
 def _ahp_kernel_device_times(torch, K: int, reps: int = 20) -> dict:
     """Device microseconds per launch of the binop and the inversion at the
-    AHP's |K| and 2^16 (the inversion also at one element)."""
+    AHP's |K| and 2^16 (the inversion also at one element), and of kernel 7
+    of the TPU package (`ops/mont.py::mont_mul`) at [4096, L]."""
     import numpy as np
 
     from chip_smoke import random_elements
     from marlin_tpu_torch.ops import bigint as bi
-    from marlin_tpu_torch.ops import fr
+    from marlin_tpu_torch.ops import fr, mont
 
     rng = np.random.default_rng(3)
     dev = torch.device("cuda")
@@ -263,7 +269,8 @@ def _ahp_kernel_device_times(torch, K: int, reps: int = 20) -> dict:
         calls[f"field_binop (fr mul, {label})"] = lambda n=n: bi.binop_kernel("mul", fr.CTX, a[:n], b[:n])
         calls[f"field_inv (fr, {label})"] = lambda n=n: bi.inv_kernel(fr.CTX, a[:n])
     calls["field_inv (fr, 1 element)"] = lambda: bi.inv_kernel(fr.CTX, a[5:6])
-    symbols = {label: _KERNEL_SYMBOLS["field_binop (fr mul)" if "binop" in label else "field_inv (fr)"]
+    calls[f"mont_mul ([4096, {fr.L}], kernel 7)"] = lambda: mont.mont_mul(a[:4096], b[:4096])
+    symbols = {label: _KERNEL_SYMBOLS["field_inv (fr)" if "inv" in label else "field_binop (fr mul)"]
                for label in calls}
     return _device_times(torch, calls, reps, symbols)
 
