@@ -19,8 +19,12 @@ Phases, each printing one line of JSON:
    Fr 2^16, 2^14 and one element and
    at the table build's 25 x 2^16 Fq, zeros at a thread's and a block's
    edges; the NTT at each of the prove's transform shapes, whole
-   transforms and each stage kernel, forward and inverse); each timed with
-   CUDA events beside its plain version;
+   transforms and each stage kernel, forward and inverse, 3(b) over its
+   groups of stages and at a shape split over two; the field binop at 2^14
+   and 2^16 for Fr and Fq with full, [1, L] and [len, L] operands, both of
+   its bodies at 2^16, and its entry's host microseconds a call); each
+   timed with CUDA events beside its plain version, and its device time in
+   one torch.profiler session (`device_times`);
 4. small   — a one-constraint circuit (SRS 32/32/96) proved under
    `test_rng()` on the CPU (plain versions) and on the card: equal proof
    bytes, the card's proof verifies, a wrong input and a flipped byte are
@@ -35,7 +39,9 @@ Phases, each printing one line of JSON:
    must verify and be 855 B; the prove reruns no MSM, calls no host MSM,
    runs its ladder in one scalar_mul launch and no doubling launch, each
    inversion in one launch, and each NTT in one block-stage launch plus one
-   per stage above 2^10, with no gather op and no Fr product of its own;
+   per group of stages above 2^10 (at most 11 such launches), with no
+   gather op and no Fr product of its own, and copies no broadcast operand
+   of the field binop;
 7. classic — the same prove from the same rng state with
    `MARLIN_TPU_MSM_TABLE=0`, every MSM on the classic Pippenger: equal
    proof bytes, the window combine launched once per MSM job, no host MSM
@@ -219,6 +225,35 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def device_times(torch, calls: dict, reps: int = 20) -> dict:
+    """Device milliseconds of each call's kernels, free of the wrapper's host
+    time: each call `reps` times in a torch.profiler session of its own,
+    the median over its kernel events of its symbol (the events of a call
+    of several launches summed in stream order).  calls: label -> (fn,
+    symbol fragment, kernels of that symbol one call launches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for label, (fn, sym, count) in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(3):  # a session now and then reports no kernel event: run it again
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            evs = sorted((ev for ev in prof.events() if getattr(ev, "device_type", None) == DeviceType.CUDA
+                          and sym in ev.name), key=lambda ev: ev.time_range.start)
+            if len(evs) >= count:
+                break
+        ms = [(ev.time_range.end - ev.time_range.start) / 1e3 for ev in evs]
+        require(len(ms) >= count, f"device_times: {label}: {len(ms)} kernel events of {sym} in three sessions")
+        per_call = [sum(ms[i : i + count]) for i in range(0, len(ms) - count + 1, count)]
+        out[label] = statistics.median(per_call)
+    return out
+
+
 def bound(nbytes: float, ops: float) -> tuple:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS_PER_S * 1e3
@@ -270,10 +305,13 @@ PTXAS_KERNELS = {
     "bucket_fold": ("curve.cu", "fold_kernelILb0E"), "bucket_fold_exact": ("curve.cu", "fold_kernelILb1E"),
     "g1_scalar_mul": ("chain.cu", "scalar_mul_kernel"), "combine_windows": ("chain.cu", "combine_kernel"),
     "field_binop_fr": ("field.cu", "binop_kernelI8FrTraitsLi0E"),
+    "field_binop_staged_fr": ("field.cu", "binop_staged_kernelI8FrTraitsLi0E"),
+    "field_binop_fq": ("field.cu", "binop_kernelI8FqTraitsLi0E"),
+    "field_binop_staged_fq": ("field.cu", "binop_staged_kernelI8FqTraitsLi0E"),
     "field_inv_fr": ("field.cu", "batch_inv_kernelI8FrTraitsE"),
     "field_inv_fq": ("field.cu", "batch_inv_kernelI8FqTraitsE"),
     "ntt_block_stages": ("ntt.cu", "block_stages_kernel"),
-    "ntt_cross_stage": ("ntt.cu", "cross_stage_kernel"),
+    "ntt_cross_stage": ("ntt.cu", "cross_stages_kernel"),
     "imad_rate": ("imad.cu", "imad_rate_kernelILi8E"),
 }
 
@@ -371,35 +409,8 @@ def phase_kernels(torch, np) -> dict:
     def err(a, b) -> int:
         return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
-    # kernel 1: Fr at 2^16 and Fq at 2^14, mul / add / sub
-    binop_err = 0
-    checks = []
-    for ctx, n in ((fr.CTX, FR_N), (fq.CTX, FQ_N)):
-        a = torch.as_tensor(random_elements(np, rng, ctx, n), device=dev)
-        b = torch.as_tensor(random_elements(np, rng, ctx, n), device=dev).flip(0).contiguous()
-        for kind, plain in (("mul", bi.mont_mul), ("add", bi.add_mod), ("sub", bi.sub_mod)):
-            e = err(bi.binop_kernel(kind, ctx, a, b), plain(ctx, a, b))
-            torch.cuda.synchronize()
-            checks.append({"field": ctx.name, "op": kind, "n": n, "max_abs_err": e})
-            binop_err = max(binop_err, e)
-        # a product with one operand below R but not below N (to_mont of raw limbs)
-        raw = torch.as_tensor(rng.integers(0, 1 << 16, size=(n, ctx.L), dtype=np.int64).astype(np.int32),
-                              device=dev)
-        e = err(bi.binop_kernel("mul", ctx, raw, b), bi.mont_mul(ctx, raw, b))
-        checks.append({"field": ctx.name, "op": "mul, a < R", "n": n, "max_abs_err": e})
-        binop_err = max(binop_err, e)
-    n16 = FR_N
-    a16 = torch.as_tensor(random_elements(np, rng, fr.CTX, n16), device=dev)
-    b16 = torch.as_tensor(random_elements(np, rng, fr.CTX, n16), device=dev)
-    b_bytes, b_by = bound(3 * n16 * 64, product_ops("fr", n16))
-    results["field_binop"] = {
-        "route": "cuda", "source": "marlin_tpu_torch/csrc/field.cu",
-        "replaces": "marlin_tpu/ops/pallas/field.py:101",
-        "max_abs_err": binop_err, "checks": checks, "shape": f"fr mul [{n16}, 16]",
-        "ms": time_ms(torch, lambda: bi.binop_kernel("mul", fr.CTX, a16, b16)),
-        "plain_ms": time_ms(torch, lambda: bi.mont_mul(fr.CTX, a16, b16), reps=5),
-        "bound_ms": b_bytes, "bound_by": b_by, "library_ms": None,
-    }
+    # kernel 1: Fr and Fq at 2^14 and 2^16 (and |K|), full and broadcast operands
+    results["field_binop"] = binop_rows(torch, np, rng, err, (fr.CTX, fq.CTX), sorted({1 << 14, 1 << 16, FR_N}))
 
     results["field_inv"] = inversion_row(torch, np, rng, err)
     results.update(ntt_rows(torch, np, rng, err))
@@ -414,6 +425,7 @@ def phase_kernels(torch, np) -> dict:
         "max_abs_err": err(mont.mont_mul(ma, mb), bi.mont_mul(fr.CTX, ma, mb)),
         "shape": f"[{MONT_N}, 16]",
         "ms": time_ms(torch, lambda: mont.mont_mul(ma, mb)),
+        "device_ms": device_times(torch, {"mont_mul": (lambda: mont.mont_mul(ma, mb), "binop_", 1)})["mont_mul"],
         "plain_ms": time_ms(torch, lambda: bi.mont_mul(fr.CTX, ma, mb), reps=5),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     }
@@ -423,6 +435,91 @@ def phase_kernels(torch, np) -> dict:
     results.update(phase_curve_kernels(torch, np))
     cuda.reset_launches()
     return results
+
+
+# kernel 1's broadcast operand [len, L] against [BCAST_M, len, L] (as
+# poly.evaluate_batch's powers against its polynomials)
+BCAST_M = 4
+HOST_US_N, HOST_US_CALLS = 4096, 1000
+
+
+def binop_rows(torch, np, rng, err, ctxs, sizes) -> dict:
+    """Kernel 1 against its plain version for each field of `ctxs` at each
+    of `sizes`: mul / add / sub on full operands, mul with one operand below
+    R (to_mont of raw limbs), and mul with a [1, L] and a [len, L] operand
+    read in place (no copy: cuda.BINOP_COPIES stays 0), each with its card
+    ms, device ms, bound (each operand row read once) and the share of it
+    reached; then both bodies (direct, staged) at the largest size (2^16)
+    for each width, and
+    the entry's host microseconds a call at [4096, L] (HOST_US_CALLS calls,
+    no synchronization).  -> the kernel row (Fr mul at 2^16 its head)."""
+    from marlin_tpu_torch.ops import bigint as bi
+    from marlin_tpu_torch.ops import cuda
+
+    dev = torch.device(DEV)
+    checks, calls, head = [], {}, None
+    for ctx in ctxs:
+        nb = 4 * ctx.L
+        for n in sizes:
+            a = torch.as_tensor(random_elements(np, rng, ctx, n), device=dev)
+            b = torch.as_tensor(random_elements(np, rng, ctx, n), device=dev).flip(0).contiguous()
+            raw = torch.as_tensor(rng.integers(0, 1 << 16, size=(n, ctx.L), dtype=np.int64).astype(np.int32),
+                                  device=dev)
+            one = torch.as_tensor(random_elements(np, rng, ctx, 5)[2:3], device=dev)  # [1, L]: N - 1
+            length = n // BCAST_M
+            row = torch.as_tensor(random_elements(np, rng, ctx, length), device=dev)
+            cases = [("mul", "full", a, b, 2 * n), ("add", "full", a, b, 2 * n), ("sub", "full", a, b, 2 * n),
+                     ("mul", "a < R", raw, b, 2 * n), ("mul", "[1, L]", a, one, n + 1),
+                     ("sub", "[1, L]", one, a, n + 1),
+                     ("mul", "[len, L]", a.reshape(BCAST_M, length, ctx.L), row, n + length)]
+            for op, operand, x, y, rows_read in cases:
+                before = dict(cuda.BINOP_COPIES)
+                got = bi.binop_kernel(op, ctx, x, y)
+                copies = sum(cuda.BINOP_COPIES[k] - before[k] for k in before)
+                require(copies == 0, f"kernel 1 copied an operand of {ctx.name} {op} {operand} [{n}]")
+                b_ms, b_by = bound((rows_read + n) * nb, product_ops(ctx.name, n) if op == "mul" else 0)
+                label = f"{ctx.name} {op} {operand} [{n}]"
+                fn = (lambda op=op, ctx=ctx, x=x, y=y: bi.binop_kernel(op, ctx, x, y))
+                calls[label] = (fn, "binop_", 1)
+                checks.append({"label": label, "field": ctx.name, "op": op, "operand": operand, "n": n,
+                               "max_abs_err": err(got, bi.PLAIN_OPS[op](ctx, x, y)), "ms": time_ms(torch, fn),
+                               "bound_ms": b_ms, "bound_by": b_by})
+                if (ctx.name, op, operand, n) == ("fr", "mul", "full", max(sizes)):
+                    head = checks[-1]
+                    head["plain_ms"] = time_ms(torch, lambda: bi.mont_mul(ctx, x, y), reps=5)
+            if n == max(sizes):  # both bodies, at 2^16
+                for staged in (False, True):
+                    calls[f"{ctx.name} mul full [{n}] {'staged' if staged else 'direct'}"] = (
+                        lambda ctx=ctx, a=a, b=b, staged=staged: bi.binop_kernel("mul", ctx, a, b, staged=staged),
+                        "binop_", 1)
+                    e = err(bi.binop_kernel("mul", ctx, a, b, staged=staged), bi.mont_mul(ctx, a, b))
+                    require(e == 0, f"kernel 1's {'staged' if staged else 'direct'} body disagrees ({ctx.name})")
+    device = device_times(torch, calls)
+    for c in checks:
+        c["device_ms"] = device[c["label"]]
+        c["reached"] = c["bound_ms"] / c["device_ms"]
+    variants = {label: ms for label, ms in device.items() if label.endswith(("staged", "direct"))}
+    # the entry's host time a call, at kernel 7's shape
+    ctx = ctxs[0]
+    ha = torch.as_tensor(random_elements(np, rng, ctx, HOST_US_N), device=dev)
+    hb = torch.as_tensor(random_elements(np, rng, ctx, HOST_US_N), device=dev)
+    for _ in range(10):
+        bi.binop_kernel("mul", ctx, ha, hb)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(HOST_US_CALLS):
+        bi.binop_kernel("mul", ctx, ha, hb)
+    host_us = (time.perf_counter() - t) / HOST_US_CALLS * 1e6
+    torch.cuda.synchronize()
+    return {
+        "route": "cuda", "source": "marlin_tpu_torch/csrc/field.cu",
+        "replaces": "marlin_tpu/ops/pallas/field.py:101",
+        "max_abs_err": max(c["max_abs_err"] for c in checks), "checks": checks, "variants": variants,
+        "staged_words": sorted(bi.BINOP_STAGED_WORDS), "host_us_per_call": host_us,
+        "host_us_shape": f"[{HOST_US_N}, {ctx.L}]", "shape": f"fr mul [{max(sizes)}, {ctx.L}]", "ms": head["ms"],
+        "device_ms": head["device_ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": None,
+    }
 
 
 def inversion_row(torch, np, rng, err) -> dict:
@@ -493,7 +590,7 @@ def ntt_rows(torch, np, rng, err) -> dict:
 
     dev = torch.device(DEV)
     checks = []
-    blocks, crosses = [], []
+    blocks, crosses, calls = [], [], {}
     for shape in NTT_PROVE_SHAPES:
         n, total = shape[-1], int(np.prod(shape))
         log_n = stage_plan(ntt, n, False, dev)[0]
@@ -520,17 +617,21 @@ def ntt_rows(torch, np, rng, err) -> dict:
             })
         row["max_abs_err"] = max(row["max_abs_err"], row.pop("inverse_max_abs_err"))
         blocks.append(row)
-        # the last stage, where 2^(s+1) = n, on the inverse plan's block output
-        s_top = log_n - 1
-        scratch = kb.clone()
-        e_cross = err(ntt.cross_stage_kernel(kb.clone(), tw, s_top), ntt.cross_stage_plain(pb, tw, s_top))
-        b_ms, b_by = bound(2 * total * FR_BYTES + (1 << s_top) * FR_BYTES, product_ops("fr", total // 2))
-        crosses.append({
-            "shape": f"{list(shape)}, stage {s_top}", "max_abs_err": e_cross,
-            "ms": time_ms(torch, lambda: ntt.cross_stage_kernel(scratch, tw, s_top)),
-            "plain_ms": time_ms(torch, lambda: ntt.cross_stage_plain(pb, tw, s_top), reps=3),
-            "bound_ms": b_ms, "bound_by": b_by,
-        })
+        # the cross stages, a group a launch, on the inverse plan's block output
+        groups = ntt.cross_groups(log_n, log_b)
+        if groups:
+            crosses.append(cross_row(torch, ntt, err, kb, pb, tw, groups, f"{list(shape)}", calls))
+    # a shape whose cross stages split over two groups
+    log_n, log_b = split_plan(ntt, fr.L)
+    n = 1 << log_n
+    tw, _ = ntt._plan_tensors(n, True, dev)
+    x = torch.as_tensor(random_elements(np, rng, fr.CTX, n), device=dev)
+    groups = ntt.cross_groups(log_n, log_b)
+    crosses.append(cross_row(torch, ntt, err, x, x, tw, groups, f"[{n}], block 2^{log_b} (split)", calls))
+    device = device_times(torch, calls)
+    for r in crosses:
+        r["device_ms"] = device[r["shape"]]
+        r["reached"] = r["bound_ms"] / r["device_ms"]
     # ntt_many == per-poly ntt, and intt(ntt(p)) == p
     n16 = FR_N
     polys = [torch.as_tensor(random_elements(np, rng, fr.CTX, n16 // 2 - 3 * i), device=dev) for i in range(4)]
@@ -540,7 +641,7 @@ def ntt_rows(torch, np, rng, err) -> dict:
     e_whole = max(c["max_abs_err"] for c in checks)
     out = {}
     for name, rows in (("ntt_block_stages", blocks), ("ntt_cross_stage", crosses)):
-        head = rows[NTT_PROVE_SHAPES.index((FR_N,))]  # 2^16 alone, the earlier PRs' row
+        head = next(r for r in rows if r["shape"].startswith(f"{[FR_N]},"))  # |K| alone, the earlier PRs' row
         out[name] = {
             "route": "cuda", "source": "marlin_tpu_torch/csrc/ntt.cu",
             "replaces": "marlin_tpu/ops/pallas/ntt.py:91",
@@ -548,8 +649,59 @@ def ntt_rows(torch, np, rng, err) -> dict:
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": None, "shapes": rows,
         }
+    out["ntt_cross_stage"]["device_ms"] = next(r["device_ms"] for r in crosses if r["shape"].startswith(f"{[FR_N]},"))
     out["ntt_block_stages"]["checks"] = checks
     return out
+
+
+def cross_row(torch, ntt, err, kb, pb, tw, groups, label, calls) -> dict:
+    """Kernel 3(b) over `groups` (one launch each) on a copy of `kb`, against
+    the plain stages on `pb` (equal to kb), timed; the call goes into
+    `calls` for its device time.  Bound: each group reads and writes every
+    element once and reads its stages' twiddle rows once; a butterfly a
+    product."""
+    from marlin_tpu_torch.ops import fr
+
+    total = kb.shape[0]
+    got = kb.clone()
+    want = pb
+    for s0, s1 in groups:
+        ntt.cross_stages_kernel(got, tw, s0, s1)
+        want = ntt.cross_stages_plain(want, tw, s0, s1)
+    stages = sum(s1 - s0 for s0, s1 in groups)
+    nbytes = sum(2 * total * FR_BYTES + ((1 << s1) - (1 << s0)) * FR_BYTES for s0, s1 in groups)
+    b_ms, b_by = bound(nbytes, product_ops("fr", total // 2 * stages))
+    scratch = kb.clone()
+
+    def run():
+        for s0, s1 in groups:
+            ntt.cross_stages_kernel(scratch, tw, s0, s1)
+
+    def plain():
+        y = pb
+        for s0, s1 in groups:
+            y = ntt.cross_stages_plain(y, tw, s0, s1)
+        return y
+
+    shape = f"{label}, stages {groups[0][0]}-{groups[-1][1] - 1}"
+    calls[shape] = (run, "cross_stages_kernel", len(groups))
+    return {"shape": shape, "groups": [list(g) for g in groups], "launches": len(groups),
+            "max_abs_err": err(got, want), "ms": time_ms(torch, run),
+            "plain_ms": time_ms(torch, plain, reps=3), "bound_ms": b_ms, "bound_by": b_by,
+            "elements": total, "limbs": fr.L}
+
+
+def split_plan(ntt, L: int) -> tuple:
+    """(log_n, log_b): a radix-2 transform whose cross stages kernel 3(b)
+    splits over two groups: the smallest past one whole group above the
+    2^10 block, within the field's 2-adicity, else a smaller block."""
+    from marlin_tpu_torch.fields import active as P
+
+    log_n = 10
+    while len(ntt.cross_groups(log_n, ntt.BLOCK_LOG2, L)) < 2 and log_n < P.FR_TWO_ADICITY:
+        log_n += 1
+    log_b = max(b for b in range(1, ntt.BLOCK_LOG2 + 1) if len(ntt.cross_groups(log_n, b, L)) == 2)
+    return log_n, log_b
 
 
 def curve_points(np, n: int, seed: int) -> list:
@@ -1042,6 +1194,7 @@ def phase_main(torch) -> tuple:
     pk, vk = timed("index", lambda: Marlin.index(srs, circ, device=DEV))
     # the prove's MSM jobs, host MSM calls and exact reruns, counted around it
     before = dict(cuda.LAUNCHES)
+    copies_before = dict(cuda.BINOP_COPIES)
     reruns = kzg.STATS["exact_reruns"]
     rng_at_prove = copy.deepcopy(rng)
     profiling.enable(True)
@@ -1052,6 +1205,7 @@ def phase_main(torch) -> tuple:
     spans = profiling.collect()
     profiling.enable(False)
     prove_launches = {k: v - before[k] for k, v in cuda.LAUNCHES.items()}
+    prove_copies = {k: v - copies_before[k] for k, v in cuda.BINOP_COPIES.items()}
     prove_reruns = kzg.STATS["exact_reruns"] - reruns
     ok = timed("verify", lambda: Marlin.verify(vk, public, proof, rng, device=DEV))
     launches = dict(cuda.LAUNCHES)
@@ -1068,6 +1222,8 @@ def phase_main(torch) -> tuple:
         launches=launches,
         prove_launches=prove_launches,
         binop_launches=binop_by_op,
+        binop_copies=dict(cuda.BINOP_COPIES),
+        prove_binop_copies=prove_copies,
         prove_msm_jobs=seen["jobs"],
         prove_exact_reruns=prove_reruns,
         prove_host_msm_calls=seen["host_calls"],
@@ -1098,15 +1254,21 @@ def phase_main(torch) -> tuple:
             f"the 2^14 prove launched the doubling {prove_launches['g1_double']} times, expected none")
     require(prove_reruns == 0, f"the 2^14 prove reran {prove_reruns} MSM batches")
     # kernel 2: one launch per inversion; kernel 3: one 3(a) launch per
-    # transform plus one 3(b) per stage above 2^10, no gather op outside the
+    # transform plus one 3(b) per group of stages above 2^10, no gather op outside the
     # kernel and no n^-1 product
     require(prove_launches["field_inv"] == len(watched["inversions"]) > 0
             and all(i["launches"] == 1 for i in watched["inversions"]),
             f"the prove's inversions: {watched['inversions']}, {prove_launches['field_inv']} launches")
     require(len(watched["transforms"]) > 0, "the prove ran no NTT")
+    # kernel 3(b): one launch per group of cross stages, at most one a
+    # transform wider than the block (was one a stage: 56 a prove)
+    require(prove_launches["ntt_cross_stage"] <= MAX_PROVE_CROSS_LAUNCHES,
+            f"the 2^14 prove launched 3(b) {prove_launches['ntt_cross_stage']} times")
+    # kernel 1 reads every broadcast operand of the prove in place
+    require(prove_copies["broadcast"] == 0, f"the 2^14 prove materialized broadcasts: {prove_copies}")
     for t in watched["transforms"]:
         log_n = t["shape"][-1].bit_length() - 1
-        want = (1, log_n - min(log_n, ntt.BLOCK_LOG2)) if log_n else (0, 0)
+        want = (1, len(ntt.cross_groups(log_n, min(log_n, ntt.BLOCK_LOG2)))) if log_n else (0, 0)
         require((t["block_launches"], t["cross_launches"]) == want and t["fr_mul_launches"] == 0
                 and not set(t["ops"]) & GATHER_OPS, f"an NTT of the prove ran outside its kernels: {t}")
     require(seen["host_calls"] == 0, f"the 2^14 prove called the host MSM {seen['host_calls']} times")
@@ -1115,6 +1277,9 @@ def phase_main(torch) -> tuple:
     return rec, state
 
 
+# kernel 3(b)'s launches in the 2^14 prove: at most one for each 3(a) launch
+# of a transform wider than the block (11 of them)
+MAX_PROVE_CROSS_LAUNCHES = 11
 # the aten ops a bit-reversal gather would run
 GATHER_OPS = {"aten.index_select", "aten.index", "aten.gather", "aten.take"}
 
@@ -1898,7 +2063,7 @@ def wide_main(torch) -> dict:
     """The AHP at 2^14 on the card: |H| = 18,432 and |K| = 55,296, both
     mixed; both sumcheck combinations 0; every mixed transform on the card,
     each in its kernels (one 3(a) launch for its inner transforms, one 3(b)
-    per stage past the block, the twiddle, the small DFT's product and
+    per group of stages past the block, the twiddle, the small DFT's product and
     modsum's two products, no gather op); each inversion in one launch; the
     four kernels launched."""
     from marlin_tpu_torch.ops import cuda
@@ -1910,7 +2075,9 @@ def wide_main(torch) -> dict:
     torch.cuda.synchronize()
     rec["launches"] = {k: cuda.LAUNCHES[k] for k in WIDE_KERNELS}
     rec["binop_launches"] = {f"{f}.{op}": v for (f, op), v in sorted(cuda.BINOP_LAUNCHES.items())}
+    rec["binop_copies"] = dict(cuda.BINOP_COPIES)
     require((rec["H"], rec["K"]) == (18432, 55296), f"{WIDE}: domains {rec['H']}, {rec['K']}")
+    require(rec["binop_copies"]["broadcast"] == 0, f"{WIDE}: materialized broadcasts: {rec['binop_copies']}")
     require(rec["zero_evals"] == {"inner_sumcheck": 0, "outer_sumcheck": 0},
             f"{WIDE}: the sumcheck combinations are {rec['zero_evals']}")
     mixed = rec["mixed_transforms"]
@@ -1944,33 +2111,7 @@ def wide_kernels(torch, np, main_rec: dict) -> dict:
     def err(a, b) -> int:
         return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
-    checks, binop_err = [], 0
-    for n in (FR_N, 1 << 16):
-        a = torch.as_tensor(random_elements(np, rng, fr.CTX, n), device=dev)
-        b = torch.as_tensor(random_elements(np, rng, fr.CTX, n), device=dev).flip(0).contiguous()
-        raw = torch.as_tensor(rng.integers(0, 1 << 16, size=(n, fr.L), dtype=np.int64).astype(np.int32), device=dev)
-        for kind, x, plain in (("mul", a, bi.mont_mul), ("add", a, bi.add_mod), ("sub", a, bi.sub_mod),
-                               ("mul, a < R", raw, bi.mont_mul)):
-            op = kind.split(",")[0]
-            e = err(bi.binop_kernel(op, fr.CTX, x, b), plain(fr.CTX, x, b))
-            products = n if op == "mul" else 0
-            b_bytes, _ = bound(3 * n * FR_BYTES, 0)
-            b_ops = product_ops("fr", products) / PEAK_OPS_PER_S * 1e3
-            checks.append({"op": kind, "n": n, "max_abs_err": e,
-                           "ms": time_ms(torch, lambda: bi.binop_kernel(op, fr.CTX, x, b)),
-                           "bytes_bound_ms": b_bytes, "operations_bound_ms": b_ops})
-            binop_err = max(binop_err, e)
-    head = next(c for c in checks if c["op"] == "mul" and c["n"] == 1 << 16)
-    a16 = torch.as_tensor(random_elements(np, rng, fr.CTX, 1 << 16), device=dev)
-    b16 = torch.as_tensor(random_elements(np, rng, fr.CTX, 1 << 16), device=dev)
-    b_ms, b_by = bound(3 * (1 << 16) * FR_BYTES, product_ops("fr", 1 << 16))
-    results["field_binop"] = {
-        "route": "cuda", "source": "marlin_tpu_torch/csrc/field.cu",
-        "replaces": "marlin_tpu/ops/pallas/field.py:101", "max_abs_err": binop_err, "checks": checks,
-        "shape": f"fr mul [{1 << 16}, {fr.L}]", "ms": head["ms"],
-        "plain_ms": time_ms(torch, lambda: bi.mont_mul(fr.CTX, a16, b16), reps=5),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-    }
+    results["field_binop"] = binop_rows(torch, np, rng, err, (fr.CTX,), sorted({1 << 14, 1 << 16, FR_N}))
     results["field_inv"] = inversion_row(torch, np, rng, err)
     results.update(ntt_rows(torch, np, rng, err))
     results["ntt_block_stages"]["block_plan"] = block_plan(torch, np, rng)
@@ -1982,6 +2123,7 @@ def wide_kernels(torch, np, main_rec: dict) -> dict:
         "replaces": "marlin_tpu/ops/pallas/mont.py:83",
         "max_abs_err": err(mont.mont_mul(ma, mb), bi.mont_mul(fr.CTX, ma, mb)), "shape": f"[{MONT_N}, {fr.L}]",
         "ms": time_ms(torch, lambda: mont.mont_mul(ma, mb)),
+        "device_ms": device_times(torch, {"mont_mul": (lambda: mont.mont_mul(ma, mb), "binop_", 1)})["mont_mul"],
         "plain_ms": time_ms(torch, lambda: bi.mont_mul(fr.CTX, ma, mb), reps=5),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     }
@@ -1994,7 +2136,7 @@ def wide_kernels(torch, np, main_rec: dict) -> dict:
 def block_plan(torch, np, rng) -> list:
     """Kernel 3's stages of the AHP's inner transforms (2^11 points, 9 and
     27 of them at |H| and |K|), forward and inverse, with 3(a)'s block at
-    2^9 and at 2^10 (one 3(b) launch per stage past it): the milliseconds
+    2^9 and at 2^10 (3(b) launches for the stages past it): the milliseconds
     of each plan, by which ops/ntt.py picks BLOCK_LOG2 at 24 words."""
     from marlin_tpu_torch.ops import fr, ntt
 
@@ -2138,7 +2280,7 @@ def set_curve_shapes(log2: int, K: int, inversions: list, transforms: list, jobs
 
 def require_transforms_in_kernels(torch, curve: str, transforms: list) -> None:
     """Each watched transform ran in its kernels: one 3(a) launch (for a
-    mixed size, its inner batch) and one 3(b) per stage past the block, no
+    mixed size, its inner batch) and one 3(b) per group of stages past the block, no
     gather op; a mixed one also the twiddle, the small DFT's product and
     modsum's two products of Fr, a radix-2 one no Fr product."""
     from marlin_tpu_torch.ops import ntt
@@ -2146,7 +2288,7 @@ def require_transforms_in_kernels(torch, curve: str, transforms: list) -> None:
     for t in transforms:
         size = t["shape"][-1]
         log_n = stage_plan(ntt, size, False, torch.device(DEV))[0]
-        want = (1, log_n - min(log_n, ntt.BLOCK_LOG2))
+        want = (1, len(ntt.cross_groups(log_n, min(log_n, ntt.BLOCK_LOG2))))
         muls = 4 if size & (size - 1) else 0
         require((t["block_launches"], t["cross_launches"]) == want and t["fr_mul_launches"] == muls
                 and not set(t["ops"]) & GATHER_OPS, f"{curve}: an NTT ran outside its kernels: {t}")
@@ -2188,6 +2330,7 @@ def curve_main(torch, curve: str) -> tuple:
     srs = timed("setup", lambda: Marlin.universal_setup(n, n, 3 * n, rng, device=DEV))
     pk, vk = timed("index", lambda: Marlin.index(srs, circ, device=DEV))
     before = dict(cuda.LAUNCHES)
+    copies_before = dict(cuda.BINOP_COPIES)
     mixed_before = dict(ntt.MIXED_TRANSFORMS)
     reruns = kzg.STATS["exact_reruns"]
     rng_at_prove = copy.deepcopy(rng)
@@ -2195,6 +2338,7 @@ def curve_main(torch, curve: str) -> tuple:
             contextlib.redirect_stdout(io.StringIO()):
         proof = timed("prove", lambda: Marlin.prove(pk, circ, rng, device=DEV))
     prove_launches = {k: v - before[k] for k, v in cuda.LAUNCHES.items()}
+    prove_copies = {k: v - copies_before[k] for k, v in cuda.BINOP_COPIES.items()}
     mixed = {k: v - mixed_before[k] for k, v in ntt.MIXED_TRANSFORMS.items()}
     ok = timed("verify", lambda: Marlin.verify(vk, public, proof, rng, device=DEV))
     torch.cuda.synchronize()
@@ -2208,6 +2352,7 @@ def curve_main(torch, curve: str) -> tuple:
                prove_msm_jobs=seen["jobs"], prove_host_msm_calls=seen["host_calls"],
                prove_exact_reruns=kzg.STATS["exact_reruns"] - reruns, prove_inversions=watched["inversions"],
                prove_transforms=watched["transforms"], prove_mixed_transforms=mixed,
+               binop_copies=dict(cuda.BINOP_COPIES), prove_binop_copies=prove_copies,
                srs_powers=srs.powers_of_g[0].shape[0], proof_bytes=len(blob), verifies=bool(ok))
     require(ok, f"{curve}: the 2^{cfg['log2']} proof does not verify")
     require(_rejects(Marlin, vk, [(public[0] + 1) % P.R_MODULUS], blob, rng, DEV),
@@ -2218,6 +2363,7 @@ def curve_main(torch, curve: str) -> tuple:
     require(seen["host_calls"] == 0, f"{curve}: the prove called the host MSM {seen['host_calls']} times")
     require(rec["prove_exact_reruns"] == 0, f"{curve}: the prove reran {rec['prove_exact_reruns']} MSM batches")
     require(mixed["cpu"] == 0, f"{curve}: {mixed['cpu']} mixed-radix transforms ran on the host")
+    require(prove_copies["broadcast"] == 0, f"{curve}: the prove materialized broadcasts: {prove_copies}")
     require_transforms_in_kernels(torch, curve, watched["transforms"])
     if h & (h - 1) or k & (k - 1):
         require(mixed["cuda"] > 0, f"{curve}: mixed domains, but no mixed transform on the card")

@@ -144,20 +144,6 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 // ---------------------------------------------------------------------------
 // kernel 5
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
 // The next filled slot of this sub-row at or after slot j (j advances past
 // it), or 0 when the row has none left.
 __device__ __forceinline__ int next_slot(const int32_t* row, int& j, int cap, int step) {

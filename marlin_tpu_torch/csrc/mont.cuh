@@ -500,6 +500,52 @@ __device__ __forceinline__ void fe_store(int32_t* dst, const uint32_t r[NL]) {
   }
 }
 
+// An element staged in shared memory: its NL/2 16-byte pieces of the API
+// layout (as cp.async copies them), the elements of a tile cell_stride =
+// NL/2 + 1 cells apart.  The odd stride puts the pieces that the 8 lanes of
+// a quarter warp read at 8 neighbouring elements in 8 distinct 16-byte bank
+// groups, and the copies of consecutive pieces on consecutive cells.  These
+// pack and unpack the 16-bit limbs as fe_load / fe_store do.
+template <int NL>
+__host__ __device__ constexpr int cell_stride() {
+  return NL / 2 + 1;
+}
+
+template <int NL>
+__device__ __forceinline__ void fe_load_cells(uint32_t r[NL], const int4* cells) {
+#pragma unroll
+  for (int q = 0; q < NL / 2; q++) {
+    int4 w = cells[q];
+    r[2 * q] = (uint32_t)w.x | ((uint32_t)w.y << 16);
+    r[2 * q + 1] = (uint32_t)w.z | ((uint32_t)w.w << 16);
+  }
+}
+
+template <int NL>
+__device__ __forceinline__ void fe_store_cells(int4* cells, const uint32_t r[NL]) {
+#pragma unroll
+  for (int q = 0; q < NL / 2; q++) {
+    cells[q] = make_int4((int)(r[2 * q] & 0xFFFFu), (int)(r[2 * q] >> 16),
+                         (int)(r[2 * q + 1] & 0xFFFFu), (int)(r[2 * q + 1] >> 16));
+  }
+}
+
+// Asynchronous 16-byte copies from global to shared memory (sm_80+), in
+// commit groups; wait_group N waits until at most N groups are in flight.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
 template <int NL>
 __device__ __forceinline__ void fe_copy(uint32_t r[NL], const uint32_t a[NL]) {
 #pragma unroll

@@ -27,9 +27,25 @@
 //     blocks at the 2^14 and 2^16 prove shapes) still spreads over the
 //     card.  It works out of place, into the output the cross stages then
 //     update.
-// (b) ntt_cross_stage: one launch per remaining stage s (butterfly stride
-//     2^s >= B), one thread per butterfly, reading and writing global memory
-//     in place.
+// (b) ntt_cross_stages: the stages past the block, a group [s0, s1) of
+//     consecutive stages a launch (redesigned for the H100; it was one launch
+//     and one pass over global memory a stage).  The R = 2^(s1-s0) elements
+//     low + 2^s0 t + 2^s1 high (t < R) are closed under those stages, so a
+//     CTA loads T adjacent `low` positions of all R rows (each row T
+//     contiguous elements) into shared memory with cp.async, runs the
+//     group's stages there with one butterfly a thread a stage, its twiddles
+//     read from the table through the read-only path, and writes the tile
+//     back in place.  The tile is R T elements of 16-byte pieces, an odd
+//     number of cells apart (mont.cuh fe_load_cells), so neither the
+//     copies nor a warp's butterflies meet bank conflicts; R T <= 2^10 at
+//     8 words and 2^9 at 24 (kCrossSmem, 64 and 96 KB of pieces) at
+//     T = min(8, 2^s0).  The tile's
+//     twiddles (T (R - 1) table rows) come into shared memory in the same
+//     cp.async group, so no stage waits on a global load.
+//     ops/ntt.py::cross_groups splits the stages into groups that fit, so
+//     the six cross stages of a 2^16 transform (R = 64) are one launch, not
+//     six; the host narrows T, down to 2 (128-byte rows at 8 words), until
+//     the grid has two CTAs an SM.
 //
 // Stage s pairs e = g*2m + j with o = e + m (m = 2^s, j < m) and computes
 // x[e], x[o] = x[e] + w*x[o], x[e] - w*x[o] with w = TW_s[j] = w_{2m}^j, the
@@ -39,17 +55,18 @@
 // and inverse.
 //
 // What bounds it on the H100: a butterfly is one Montgomery product (160
-// integer multiply instructions) and an add and a sub on 128 bytes of
-// element traffic per stage, so each cross-block stage is bound by memory
-// bandwidth and (a), with log2(B) = 10 stages per global round trip, by
-// integer multiplies: a 2^10 block's 5,120 products keep one SM busy for
-// ~26 us on the H100, so (a) is as fast as the number of SMs its grid
-// covers, which the clusters raise.  (a) keeps its elements and the twiddle
-// rows of its CTA's own stages in shared memory as 32-bit limbs,
-// limb-major ([NL][P]), so the 32 elements of a warp's butterflies fall on
-// 32 banks (two ways at most in stages 0-4); 64 KB of dynamic shared memory
-// at B = 2^10 and C = 1.  The cluster stages read their twiddles from
-// global memory.
+// integer multiply instructions at 8 words, 1,127 at 24) and an add and a
+// sub on 128 bytes of element traffic per stage at 8 words, so a stage on
+// its own is bound by memory bandwidth; (b) takes a group of stages for one
+// read and one write of the elements.  (a), with log2(B) = 10 stages per
+// global round trip, is bound by integer multiplies: a 2^10 block's 5,120
+// products keep one SM busy for ~26 us on the H100, so (a) is as fast as
+// the number of SMs its grid covers, which the clusters raise.  (a) keeps
+// its elements and the twiddle rows of its CTA's own stages in shared
+// memory as 32-bit limbs, limb-major ([NL][P]), so the 32 elements of a
+// warp's butterflies fall on 32 banks (two ways at most in stages 0-4); 64
+// KB of dynamic shared memory at B = 2^10 and C = 1.  The cluster stages
+// read their twiddles from global memory.
 //
 // C interface (ctypes): every entry returns the cudaError_t of its launch.
 
@@ -73,7 +90,14 @@ constexpr int kMaxLogB = 10;
 // 255-register cap of 256 threads.  The block size B = 2^log_b (<= 2^10) is
 // the caller's (ops/ntt.py BLOCK_LOG2, by width).
 constexpr int kBlockThreads = NL > 12 ? 256 : 512;
-constexpr int kThreads = 256;
+// (b)'s threads: a butterfly each at 8 words; two at 24, whose ~170
+// registers a thread allow 2-3 CTAs of 128 an SM
+constexpr int kCrossThreads = NL > 12 ? 128 : 256;
+// (b)'s tile budget (ops/ntt.py CROSS_SMEM_BYTES): 2^10 elements at 8
+// words (64 KB), 2^9 at 24 (96 KB), at T = min(8, 2^s0); the twiddles take
+// up to as much again
+constexpr size_t kCrossSmem = 96 * 1024;
+constexpr int kPieces = NL / 2;  // 16-byte pieces an element
 constexpr size_t kBlockSmem = 2 * NL * (1 << kMaxLogB) * sizeof(uint32_t);
 
 __device__ __forceinline__ void butterfly(uint32_t xe[NL], uint32_t xo[NL], const uint32_t w[NL]) {
@@ -198,21 +222,61 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
   }
 }
 
-__global__ void __launch_bounds__(kThreads) cross_stage_kernel(int32_t* __restrict__ x, long long half_total, int s,
-                                   const int32_t* __restrict__ tw) {
-  const long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= half_total) return;
-  const long long m = 1LL << s;
-  const long long j = k & (m - 1);
-  const long long e = ((k >> s) << (s + 1)) + j;
-  const long long o = e + m;
-  uint32_t xe[NL], xo[NL], w[NL];
-  fe_load<NL>(xe, x + e * 2 * NL);
-  fe_load<NL>(xo, x + o * 2 * NL);
-  fe_load<NL>(w, tw + (m - 1 + j) * 2 * NL);
-  butterfly(xe, xo, w);
-  fe_store<NL>(x + e * 2 * NL, xe);
-  fe_store<NL>(x + o * 2 * NL, xo);
+// Stages s0 .. s0+g-1 of one tile: 2^g rows of T = 2^log_t elements, row t
+// at base + 2^s0 t, base = high 2^(s0+g) + T lowblock (the CTA's index).
+// The tile's twiddles come in with its elements: stage s0 + sp needs rows
+// m < 2^sp of T consecutive table rows, 2^(s0+sp) - 1 + low + 2^s0 m.
+__global__ void __launch_bounds__(kCrossThreads)
+    cross_stages_kernel(int32_t* __restrict__ x, int s0, int g, int log_t, const int32_t* __restrict__ tw) {
+  constexpr int CS = cell_stride<NL>();
+  extern __shared__ int4 cells[];  // [E][CS] elements, then [TWN][CS] twiddles (mont.cuh)
+  const int log_e = g + log_t;
+  const int E = 1 << log_e;
+  const int T = 1 << log_t;
+  const int TWN = ((1 << g) - 1) << log_t;
+  int4* twc = cells + CS * E;
+  const long long c = blockIdx.x;
+  const long long low = (c & ((1LL << (s0 - log_t)) - 1)) << log_t;  // the tile's first low position
+  const long long base = ((c >> (s0 - log_t)) << (s0 + g)) + low;
+  for (int p = threadIdx.x; p < kPieces * E; p += blockDim.x) {
+    const int pos = p / kPieces, q = p - pos * kPieces;
+    const long long el = base + ((long long)(pos >> log_t) << s0) + (pos & (T - 1));
+    cp_async16(cells + pos * CS + q, x + el * 2 * NL + 4 * q);
+  }
+  for (int p = threadIdx.x; p < kPieces * TWN; p += blockDim.x) {
+    const int pos = p / kPieces, q = p - pos * kPieces;
+    const int r = pos >> log_t;  // stage sp's rows are 2^sp - 1 .. 2^(sp+1) - 2
+    const int sp = 31 - __clz(r + 1);
+    const long long row = (1LL << (s0 + sp)) - 1 + low + ((long long)(r + 1 - (1 << sp)) << s0) + (pos & (T - 1));
+    cp_async16(twc + pos * CS + q, tw + row * 2 * NL + 4 * q);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int sp = 0; sp < g; sp++) {
+    for (int k = threadIdx.x; k < E / 2; k += blockDim.x) {
+      const int l = k & (T - 1);
+      const int h = k >> log_t;
+      const int re = ((h >> sp) << (sp + 1)) | (h & ((1 << sp) - 1));  // the even row
+      const int pe = (re << log_t) | l;
+      const int po = pe + (1 << (sp + log_t));
+      const int pw = (((1 << sp) - 1 + (re & ((1 << sp) - 1))) << log_t) | l;
+      uint32_t xe[NL], xo[NL], w[NL];
+      fe_load_cells<NL>(xe, cells + pe * CS);
+      fe_load_cells<NL>(xo, cells + po * CS);
+      fe_load_cells<NL>(w, twc + pw * CS);
+      butterfly(xe, xo, w);
+      fe_store_cells<NL>(cells + pe * CS, xe);
+      fe_store_cells<NL>(cells + po * CS, xo);
+    }
+    __syncthreads();
+  }
+  int4* out = reinterpret_cast<int4*>(x);
+  for (int p = threadIdx.x; p < kPieces * E; p += blockDim.x) {
+    const int pos = p / kPieces, q = p - pos * kPieces;
+    const long long el = base + ((long long)(pos >> log_t) << s0) + (pos & (T - 1));
+    out[el * kPieces + q] = cells[pos * CS + q];
+  }
 }
 
 }  // namespace
@@ -274,15 +338,40 @@ extern "C" int marlin_ntt_block_stages(const void* x, void* y, long long total, 
   return (int)cudaGetLastError();
 }
 
-// One DIT stage s over all of x ([total, 2 NL] int32, 2^(s+1) | total); in place.
-extern "C" int marlin_ntt_cross_stage(void* x, long long total, int s, const void* tw,
-                                      const void* params, void* stream) {
-  if (s < 0 || total <= 0 || (total & ((2LL << s) - 1))) return (int)cudaErrorInvalidValue;
+// Stages [s0, s1) over all of x ([total, 2 NL] int32, 2^s1 | total), in
+// place; tw the transform's twiddle table.  Refused (cudaErrorInvalidValue)
+// unless 2^(s1-s0) rows of min(8, 2^s0) elements fit kCrossSmem.
+extern "C" int marlin_ntt_cross_stages(void* x, long long total, int s0, int s1, const void* tw,
+                                       const void* params, void* stream) {
+  const int g = s1 - s0;
+  const int min_log_t = s0 < 3 ? s0 : 3;
+  if (s0 < 0 || g < 1 || s1 > 30 || total <= 0 || (total & ((1LL << s1) - 1)) ||
+      ((size_t)1 << (g + min_log_t)) * kPieces * 16 > kCrossSmem)
+    return (int)cudaErrorInvalidValue;
   if (!params_match<F>(mod_params_from_words(static_cast<const uint32_t*>(params)), kFieldFr))
     return (int)cudaErrorInvalidValue;
-  const long long half_total = total / 2;
-  const unsigned blocks = (unsigned)((half_total + kThreads - 1) / kThreads);
-  cross_stage_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int32_t*>(x), half_total, s, static_cast<const int32_t*>(tw));
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  // T: the widest that fits, narrowed to two elements (a 128-byte row at 8
+  // words) while there are fewer than two CTAs an SM
+  int log_t = s0;
+  while (((size_t)1 << (g + log_t)) * kPieces * 16 > kCrossSmem) log_t--;
+  while (log_t > (s0 < 1 ? s0 : 1) && (total >> (g + log_t)) < 2LL * sms) log_t--;
+  const int E = 1 << (g + log_t);
+  const int TWN = ((1 << g) - 1) << log_t;
+  const size_t smem = (size_t)(E + TWN) * cell_stride<NL>() * 16;  // <= 211 KB
+  // dynamic shared memory past 48 KB, opened as far as a launch needs, a device at a time
+  static size_t opened[64];
+  if (smem > 48 * 1024 && (dev >= 64 || smem > opened[dev])) {
+    err = cudaFuncSetAttribute(cross_stages_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) opened[dev] = smem;
+  }
+  const unsigned blocks = (unsigned)(total >> (g + log_t));
+  const int threads = E / 2 < kCrossThreads ? E / 2 : kCrossThreads;
+  cross_stages_kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int32_t*>(x), s0, g, log_t, static_cast<const int32_t*>(tw));
   return (int)cudaGetLastError();
 }

@@ -14,6 +14,9 @@ Two implementations of each field op live here:
   and `chip_smoke.py` holds the kernels against it on the card;
 * the **kernel wrappers** (`binop_kernel`, `inv_kernel`): checks, output
   allocation and the launch of `csrc/field.cu` on the current stream.
+  The binop reads a broadcast operand in place through a row map
+  (`row_map`; `rows_by_map` is the plain version of that read) and copies
+  only what no map expresses, counted in `cuda.BINOP_COPIES`.
 
 `ops/routing.py` picks between them by the tensor's device alone.  Outputs
 are canonical (< N) in both, so they agree limb for limb with each other
@@ -24,6 +27,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -271,12 +275,84 @@ def _kernel_operand(t: torch.Tensor, shape) -> torch.Tensor:
     return t
 
 
-def binop_kernel(kind: str, ctx: ModCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+# kernel 1's two bodies (csrc/field.cu): the widths (32-bit words an
+# element) at which a launch stages its operand tiles in shared memory by
+# cp.async; at the others (Fr's 8 words) operands load into registers.
+# Chosen by timing both at 2^16 on the H100 (tools/kernel_ab.py, the
+# `variants` of chip_smoke.py's field_binop row; PERF.md §6).
+BINOP_STAGED_WORDS = frozenset({12, 24})
+IDENTITY_MAP = (1, 0)  # (div, period): element i reads row i
+
+
+def row_map(shape, out_shape) -> tuple | None:
+    """The row map by which kernel 1 reads an operand of batch shape `shape`
+    broadcast to `out_shape` in place: (div, period) such that element i of
+    the flattened output reads row (i // div) % period of the operand
+    (period 0: row i), or None when one map cannot express the broadcast.
+
+    The dims where the output has size 1 do not count.  Of the others, the
+    operand's full dims must be consecutive (no broadcast dim between
+    them); `period` is their product and `div` the product of the output's
+    dims after them: [1] against [n] is period 1, [len] against [m, len]
+    period len, [k, 1] against [k, m] div m and period k."""
+    shape = (1,) * (len(out_shape) - len(shape)) + tuple(shape)
+    dims = [(s, o) for s, o in zip(shape, out_shape) if o != 1]
+    if all(s == o for s, o in dims):
+        return IDENTITY_MAP
+    full = [i for i, (s, o) in enumerate(dims) if s == o]
+    if not full:
+        return (1, 1)
+    first, last = full[0], full[-1]
+    if last - first + 1 != len(full):
+        return None
+    period = math.prod(o for _, o in dims[first : last + 1])
+    div = math.prod(o for _, o in dims[last + 1 :])
+    return (div, period)
+
+
+def rows_by_map(t: torch.Tensor, m: tuple, n: int) -> torch.Tensor:
+    """Plain version of kernel 1's operand read: the [n, L] rows that its
+    row map `m` gives of t ([.., L], contiguous)."""
+    div, period = m
+    i = torch.arange(n, device=t.device)
+    rows = i if period == 0 else (i // div) % period
+    return t.reshape(-1, t.shape[-1])[rows]
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    return t.is_contiguous() and t.data_ptr() % 16 == 0
+
+
+def _binop_operand(t: torch.Tensor, shape) -> tuple:
+    """(tensor, row map) by which kernel 1 reads operand t of a launch of
+    batch shape `shape`: t itself where a row map expresses its broadcast,
+    else t made to the full shape (counted in cuda.BINOP_COPIES); a copy
+    too of an operand that is not contiguous or 16-byte aligned."""
+    m = IDENTITY_MAP if t.shape[:-1] == shape else row_map(t.shape[:-1], shape)
+    if m is None:
+        cuda.BINOP_COPIES["broadcast"] += 1
+        return t.expand(*shape, t.shape[-1]).contiguous(), IDENTITY_MAP
+    if not _aligned(t):
+        cuda.BINOP_COPIES["layout"] += 1
+        t = t.clone(memory_format=torch.contiguous_format)
+    return t, m
+
+
+@functools.lru_cache(maxsize=None)
+def _params_ptr(ctx: ModCtx) -> ctypes.c_void_p:
+    """The `kernel_params` words of ctx as a launch argument, made once (the
+    cached array they point into lives as long as ctx)."""
+    return ctx.kernel_params.ctypes.data_as(ctypes.c_void_p)
+
+
+def binop_kernel(kind: str, ctx: ModCtx, a: torch.Tensor, b: torch.Tensor,
+                 staged: bool | None = None) -> torch.Tensor:
     """Kernel 1: elementwise mul/add/sub of broadcastable [.., L] CUDA
-    tensors (operands broadcast to a common shape before the launch)."""
+    tensors, each operand read in place through its row map.  `staged`
+    picks the body (default: by width, BINOP_STAGED_WORDS)."""
     shape = torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
-    a = _kernel_operand(a, shape)
-    b = _kernel_operand(b, shape)
+    a, am = _binop_operand(a, shape)
+    b, bm = _binop_operand(b, shape)
     for name, t in (("a", a), ("b", b)):
         cuda.require_cuda_field_tensor(t, f"binop_kernel {name}", ctx.L)
     if a.device != b.device:
@@ -285,10 +361,13 @@ def binop_kernel(kind: str, ctx: ModCtx, a: torch.Tensor, b: torch.Tensor) -> to
     n = out.numel() // ctx.L
     if n == 0:
         return out
-    params = ctx.kernel_params
+    if n >= 1 << 31:
+        raise ValueError(f"binop_kernel: {n} elements, the kernel takes fewer than 2^31")
+    if staged is None:
+        staged = ctx.L // 2 in BINOP_STAGED_WORDS
     err = cuda.lib().marlin_field_binop(
         BINOP_KIND[kind], ctx.field_id, a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
-        params.ctypes.data_as(ctypes.c_void_p), cuda.stream_handle(out),
+        *am, *bm, int(staged), _params_ptr(ctx), cuda.stream_handle(out),
     )
     cuda.LAUNCHES["field_binop"] += 1
     key = (ctx.name, kind)
@@ -306,10 +385,8 @@ def inv_kernel(ctx: ModCtx, x: torch.Tensor) -> torch.Tensor:
     n = out.numel() // ctx.L
     if n == 0:
         return out
-    params = ctx.kernel_params
     err = cuda.lib().marlin_field_inv(
-        ctx.field_id, x.data_ptr(), out.data_ptr(), n,
-        params.ctypes.data_as(ctypes.c_void_p), cuda.stream_handle(out),
+        ctx.field_id, x.data_ptr(), out.data_ptr(), n, _params_ptr(ctx), cuda.stream_handle(out),
     )
     cuda.LAUNCHES["field_inv"] += 1
     cuda.check(err, "field_inv")

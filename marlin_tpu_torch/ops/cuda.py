@@ -85,6 +85,10 @@ LAUNCHES: dict[str, int] = {
 }
 # the field binop's launches split by (field, op), e.g. ("fr", "mul")
 BINOP_LAUNCHES: dict[tuple, int] = {}
+# the binop's operand copies before a launch: "broadcast", a broadcast its
+# row map cannot express, made to the full shape; "layout", an operand that
+# is not contiguous or not 16-byte aligned (ops/bigint.py::binop_kernel)
+BINOP_COPIES: dict[str, int] = {"broadcast": 0, "layout": 0}
 
 _LIB = None
 
@@ -94,16 +98,16 @@ _LL = ctypes.c_longlong
 # each source's entries and their argument types
 _SIGNATURES = {
     "field.cu": {
-        # (kind, field, a, b, out, n, params, stream)
-        "marlin_field_binop": [_I, _I, _P, _P, _P, _LL, _P, _P],
+        # (kind, field, a, b, out, n, a_div, a_period, b_div, b_period, staged, params, stream)
+        "marlin_field_binop": [_I, _I, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _I, _P, _P],
         # (field, x, out, n, params, stream)
         "marlin_field_inv": [_I, _P, _P, _LL, _P, _P],
     },
     "ntt.cu": {
         # (x, y, total, log_n, log_b, twiddles, scale, params, stream)
         "marlin_ntt_block_stages": [_P, _P, _LL, _I, _I, _P, _P, _P, _P],
-        # (x, total, stage, twiddles, params, stream)
-        "marlin_ntt_cross_stage": [_P, _LL, _I, _P, _P, _P],
+        # (x, total, s0, s1, twiddles, params, stream)
+        "marlin_ntt_cross_stages": [_P, _LL, _I, _I, _P, _P, _P],
     },
     "curve.cu": {
         # (x1, y1, z1, x2, y2, z2, ox, oy, oz, n, stream)
@@ -138,6 +142,8 @@ def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
     BINOP_LAUNCHES.clear()
+    for k in BINOP_COPIES:
+        BINOP_COPIES[k] = 0
 
 
 def _nvcc() -> str:

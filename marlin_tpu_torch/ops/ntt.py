@@ -7,12 +7,13 @@ output matches the JAX package limb for limb; only the staging differs.
 On a CUDA tensor the stages run as kernel 3 (csrc/ntt.cu): one launch of
 (a) gathers the input in bit-reversed order, scales it by n^-1 for an
 inverse transform and runs the first `BLOCK_LOG2` stages in shared memory,
-one block per B-element block of the output; then (b) runs one global
-launch per remaining stage.  A transform is therefore 1 + max(0, log2(n) -
-BLOCK_LOG2) launches and nothing else: no permuted copy and no separate
-n^-1 product.
+one block per B-element block of the output; then (b) runs the remaining
+stages a group a launch (`cross_groups`: every cross stage of a transform
+up to 2^17 points at 8 words, 2^16 at 24, in one group).  A transform is
+therefore 1 + len(cross_groups(...)) launches and nothing else: no
+permuted copy and no separate n^-1 product.
 On a CPU tensor the plain twins of those two kernels run
-(`block_stages_plain`, `cross_stage_plain`) — the same gather, scale and
+(`block_stages_plain`, `cross_stages_plain`) — the same gather, scale and
 stage math in plain PyTorch.
 
 Mixed-radix sizes n = n1·n2 (n1 = base^s, n2 = 2^k; the domains of a
@@ -36,7 +37,6 @@ the mesh to the four-step NTT (parallel/ntt_sharded.py), and
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
@@ -57,6 +57,25 @@ R = P.R_MODULUS
 # 10-20% faster at |K|'s 27 transforms and within 2% at |H|'s 9, so both
 # widths run the same blocks.
 BLOCK_LOG2 = 10
+# kernel 3(b)'s shared-memory tile (csrc/ntt.cu kCrossSmem): 2^(s1-s0) rows
+# of at least min(8, 2^s0) elements of 4 L bytes
+CROSS_SMEM_BYTES = 96 * 1024
+
+
+def cross_groups(log_n: int, log_b: int, L: int | None = None) -> list:
+    """The groups [s0, s1) of consecutive stages past the block that kernel
+    3(b) runs a launch each, for 2^log_n-point transforms of [.., L] limbs
+    (Fr's by default): the largest group whose tile of 2^(s1-s0) rows of
+    min(8, 2^s0) elements fits CROSS_SMEM_BYTES, from s0 = log_b on; every
+    stage log_b .. log_n - 1 in exactly one group."""
+    L = fr.L if L is None else L
+    log_e = (CROSS_SMEM_BYTES // (4 * L)).bit_length() - 1  # the tile's elements, a power of two
+    groups, s0 = [], log_b
+    while s0 < log_n:
+        s1 = min(log_n, s0 + log_e - min(3, s0))
+        groups.append((s0, s1))
+        s0 = s1
+    return groups
 
 
 @functools.lru_cache(maxsize=None)
@@ -178,9 +197,11 @@ def block_stages_plain(
     return x
 
 
-def cross_stage_plain(x: torch.Tensor, tw: torch.Tensor, s: int) -> torch.Tensor:
-    """DIT stage s over all of x ([total, L])."""
-    return _stage_plain(x, tw, s)
+def cross_stages_plain(x: torch.Tensor, tw: torch.Tensor, s0: int, s1: int) -> torch.Tensor:
+    """DIT stages s0 .. s1-1 over all of x ([total, L]); a new tensor."""
+    for s in range(s0, s1):
+        x = _stage_plain(x, tw, s)
+    return x
 
 
 # --------------------------------------------------------------------------
@@ -204,24 +225,21 @@ def block_stages_kernel(
     if scale is not None:
         cuda.require_cuda_field_tensor(scale, "ntt scale", fr.L)
     y = torch.empty_like(x)
-    params = fr.CTX.kernel_params
     err = cuda.lib().marlin_ntt_block_stages(
         x.data_ptr(), y.data_ptr(), x.shape[0], log_n, log_b, tw.data_ptr(),
-        None if scale is None else scale.data_ptr(),
-        params.ctypes.data_as(ctypes.c_void_p), cuda.stream_handle(x),
+        None if scale is None else scale.data_ptr(), bi._params_ptr(fr.CTX), cuda.stream_handle(x),
     )
     cuda.LAUNCHES["ntt_block_stages"] += 1
     cuda.check(err, "ntt_block_stages")
     return y
 
 
-def cross_stage_kernel(x: torch.Tensor, tw: torch.Tensor, s: int) -> torch.Tensor:
-    """Kernel 3(b): DIT stage s over all of x, in place."""
+def cross_stages_kernel(x: torch.Tensor, tw: torch.Tensor, s0: int, s1: int) -> torch.Tensor:
+    """Kernel 3(b): DIT stages s0 .. s1-1 over all of x in one launch, in
+    place (a group of `cross_groups`)."""
     _check_stage_args(x, tw)
-    params = fr.CTX.kernel_params
-    err = cuda.lib().marlin_ntt_cross_stage(
-        x.data_ptr(), x.shape[0], s, tw.data_ptr(),
-        params.ctypes.data_as(ctypes.c_void_p), cuda.stream_handle(x),
+    err = cuda.lib().marlin_ntt_cross_stages(
+        x.data_ptr(), x.shape[0], s0, s1, tw.data_ptr(), bi._params_ptr(fr.CTX), cuda.stream_handle(x),
     )
     cuda.LAUNCHES["ntt_cross_stage"] += 1
     cuda.check(err, "ntt_cross_stage")
@@ -234,16 +252,17 @@ def cross_stage_kernel(x: torch.Tensor, tw: torch.Tensor, s: int) -> torch.Tenso
 
 def _radix2_stages(flat: torch.Tensor, log_n: int, tw, scale, plain: bool, block_log2: int):
     """Every 2^log_n transform of flat [total, L] (log_n >= 1): kernel 3(a)
-    and one 3(b) launch per stage past the block, or their plain twins."""
+    and one 3(b) launch per group of stages past the block, or their plain
+    twins."""
     log_b = min(log_n, block_log2)
     if plain:
         y = block_stages_plain(flat, tw, log_b, log_n, scale)
-        for s in range(log_b, log_n):
-            y = cross_stage_plain(y, tw, s)
+        for s0, s1 in cross_groups(log_n, log_b):
+            y = cross_stages_plain(y, tw, s0, s1)
     else:
         y = block_stages_kernel(flat, tw, log_b, log_n, scale)
-        for s in range(log_b, log_n):
-            cross_stage_kernel(y, tw, s)
+        for s0, s1 in cross_groups(log_n, log_b):
+            cross_stages_kernel(y, tw, s0, s1)
     return y
 
 

@@ -106,7 +106,8 @@ def test_ntt_kernels_match_plain_twins(dev, shape):
 def test_ntt_kernels_match_plain_at_each_block_size(dev, log_n):
     """Batched [3, 2^log_n] transforms, forward and inverse, at every
     in-block size the kernel takes; each is one block-stage launch plus one
-    per wider stage, and no field product (the n^-1 rides in the gather)."""
+    per group of wider stages, and no field product (the n^-1 rides in the
+    gather)."""
     n = 1 << log_n
     x = _elements(fr.CTX, 3 * n, 30 + log_n, dev).reshape(3, n, fr.L)
     for log_b in range(1, min(log_n, ntt.BLOCK_LOG2) + 1):
@@ -114,7 +115,7 @@ def test_ntt_kernels_match_plain_at_each_block_size(dev, log_n):
             cuda.reset_launches()
             got = ntt.transform(x, inverse, block_log2=log_b)
             assert cuda.LAUNCHES["ntt_block_stages"] == 1
-            assert cuda.LAUNCHES["ntt_cross_stage"] == log_n - log_b
+            assert cuda.LAUNCHES["ntt_cross_stage"] == len(ntt.cross_groups(log_n, log_b))
             assert cuda.LAUNCHES["field_binop"] == 0
             assert torch.equal(got, ntt.transform(x, inverse, plain=True, block_log2=log_b))
 
@@ -127,6 +128,61 @@ def test_ntt_block_stage_kernel_matches_plain_with_scale(dev):
         for sc in (None, scale):
             assert torch.equal(ntt.block_stages_kernel(x, tw, log_b, 12, sc),
                                ntt.block_stages_plain(x, tw, log_b, 12, sc))
+
+
+# kernel 1's broadcast operands, read in place through their row maps:
+# (a shape, b shape), as tests/test_torch_binop_cross.py plans them
+BROADCASTS = [((3000,), (1,)), ((1,), (3000,)), ((3, 1000), (1, 1000)), ((40, 1), (40, 75)),
+              ((1, 1, 9, 128), (9, 9, 1)), ((2, 9, 128), (9, 128)), ((), (77,))]
+
+
+@pytest.mark.parametrize("staged", [False, True], ids=["direct", "staged"])
+@pytest.mark.parametrize("field", ["fr", "fq"])
+@pytest.mark.parametrize("shapes", BROADCASTS, ids=[f"{a}x{b}" for a, b in BROADCASTS])
+def test_binop_kernel_reads_broadcast_operands_in_place(dev, shapes, field, staged):
+    ctx = {"fr": fr.CTX, "fq": fq.CTX}[field]
+    sa, sb = shapes
+    a = _elements(ctx, int(np.prod(sa)), 11, dev).reshape(*sa, ctx.L)
+    b = _elements(ctx, int(np.prod(sb)), 12, dev).reshape(*sb, ctx.L)
+    for kind, plain in (("mul", bi.mont_mul), ("add", bi.add_mod), ("sub", bi.sub_mod)):
+        cuda.reset_launches()
+        got = bi.binop_kernel(kind, ctx, a, b, staged=staged)
+        assert cuda.BINOP_COPIES == {"broadcast": 0, "layout": 0}
+        assert torch.equal(got, plain(ctx, a, b))
+
+
+@pytest.mark.parametrize("staged", [False, True], ids=["direct", "staged"])
+@pytest.mark.parametrize("n", [1, 31, 32, 4096, 4097, 1 << 14, (1 << 16) + 5])
+def test_binop_kernel_bodies_at_each_grid_size(dev, n, staged):
+    """Both bodies at a one-warp block, a ragged last tile, the prove's
+    [4096, 16] and 2^14, and a grid that loops over several tiles."""
+    a, b = _elements(fr.CTX, n, 13, dev), _elements(fr.CTX, n, 14, dev).flip(0)
+    for kind, plain in (("mul", bi.mont_mul), ("sub", bi.sub_mod)):
+        assert torch.equal(bi.binop_kernel(kind, fr.CTX, a, b, staged=staged), plain(fr.CTX, a, b))
+
+
+def test_binop_kernel_counts_a_materialized_broadcast(dev):
+    a = _elements(fr.CTX, 6, 15, dev).reshape(2, 1, 3, fr.L)
+    b = _elements(fr.CTX, 30, 16, dev).reshape(2, 5, 3, fr.L)
+    cuda.reset_launches()
+    assert torch.equal(bi.binop_kernel("mul", fr.CTX, a, b), bi.mont_mul(fr.CTX, a, b))
+    assert cuda.BINOP_COPIES == {"broadcast": 1, "layout": 0}
+
+
+@pytest.mark.parametrize("log_n, log_b", [(12, 3), (13, 4), (16, 10), (17, 10), (20, 10)])
+def test_cross_stages_kernel_matches_plain_in_each_group(dev, log_n, log_b):
+    """Kernel 3(b) over each group of its plan, split (2^12 and 2^13 with a
+    small block, 2^20) or whole, against the plain stages."""
+    n = 1 << log_n
+    x = _elements(fr.CTX, 2 * n if log_n < 20 else n, 50 + log_n, dev)
+    tw, _ = ntt._plan_tensors(n, True, dev)
+    groups = ntt.cross_groups(log_n, log_b)
+    assert len(groups) == (1 if log_n in (16, 17) else 2)
+    for s0, s1 in groups:
+        cuda.reset_launches()
+        got = ntt.cross_stages_kernel(x.clone(), tw, s0, s1)
+        assert cuda.LAUNCHES["ntt_cross_stage"] == 1
+        assert torch.equal(got, ntt.cross_stages_plain(x, tw, s0, s1))
 
 
 def test_cuda_routing_counts_launches(dev):
@@ -713,8 +769,27 @@ for n in (27 << 11, 1 << 13):
         ok = ok and torch.equal(ntt.block_stages_kernel(x, tw, log_b, log_n, scale),
                                 ntt.block_stages_plain(x, tw, log_b, log_n, scale))
     y = ntt.block_stages_plain(x, tw, 10, log_n, scale)
-    ok = ok and torch.equal(ntt.cross_stage_kernel(y.clone(), tw, log_n - 1), ntt.cross_stage_plain(y, tw, log_n - 1))
-res["ntt_stages"] = bool(ok)
+    ok = ok and torch.equal(ntt.cross_stages_kernel(y.clone(), tw, 10, log_n), ntt.cross_stages_plain(y, tw, 10, log_n))
+# 3(b) at 24 words (2-adicity 13): 2^13 in one group of 6 stages past a
+# 2^7 block (the widest group), and split over two past a 2^3 block
+x = elements(1 << 13)
+tw, _ = ntt._plan_tensors(1 << 13, False, dev)
+assert ntt.cross_groups(13, 7) == [(7, 13)]
+ok = ok and torch.equal(ntt.cross_stages_kernel(x.clone(), tw, 7, 13), ntt.cross_stages_plain(x, tw, 7, 13))
+tw, _ = ntt._plan_tensors(1 << 13, True, dev)
+for s0, s1 in ntt.cross_groups(13, 3):
+    ok = ok and torch.equal(ntt.cross_stages_kernel(x.clone(), tw, s0, s1), ntt.cross_stages_plain(x, tw, s0, s1))
+res["ntt_stages"] = bool(ok and len(ntt.cross_groups(13, 3)) == 2)
+# kernel 1 at 24 words on broadcast operands, both bodies, no copy
+ok = True
+for sa, sb in (((3000,), (1,)), ((40, 1), (40, 75)), ((3, 1000), (1, 1000))):
+    x, y = elements(int(np.prod(sa))).reshape(*sa, fr.L), elements(int(np.prod(sb))).reshape(*sb, fr.L)
+    for staged in (False, True):
+        cuda.reset_launches()
+        ok = ok and all(torch.equal(bi.binop_kernel(k, fr.CTX, x, y, staged=staged), p(fr.CTX, x, y))
+                        for k, p in (("mul", bi.mont_mul), ("add", bi.add_mod), ("sub", bi.sub_mod)))
+        ok = ok and cuda.BINOP_COPIES["broadcast"] == 0
+res["binop_broadcast"] = bool(ok)
 fq_ctx = bi.ModCtx("fq", fr.CTX.modulus, fr.L, "test_wide750")
 refused = 0
 for call in (lambda: bi.binop_kernel("mul", fq_ctx, a, b), lambda: bi.inv_kernel(fq_ctx, a)):
@@ -744,6 +819,6 @@ def _wide_results() -> dict:
     return json.loads(line[len("RESULT "):])
 
 
-@pytest.mark.parametrize("check", ["binop", "inv", "transforms", "ntt_stages", "refusals"])
+@pytest.mark.parametrize("check", ["binop", "inv", "transforms", "ntt_stages", "refusals", "binop_broadcast"])
 def test_wide750_kernels_match_plain(dev, check):
     assert _wide_results()[check] is True

@@ -2,7 +2,7 @@
 
 Sizes are 2^11 and below.  On the CPU the NTT runs the plain twins of its
 two stage kernels: the in-block stages (`block_stages_plain`) and one call
-per wider stage (`cross_stage_plain`); the in-block size is a parameter,
+per group of wider stages (`cross_stages_plain`); the in-block size is a parameter,
 so both twins run at several splits.  The JAX package computes its side in
 one subprocess (its XLA route), so this process compiles nothing with XLA.
 Exact equality throughout: field arithmetic is exact and both packages

@@ -10,9 +10,13 @@ IMUL forms that multiply; the IMAD.MOV / .SHL / .IADD forms that the
 compiler uses as moves, shifts and adds are counted apart).  One product's
 count is the binop kernel's mul instance less its add instance (the same
 loads, stores and indexing around one field op), for Fq (12 limbs; 8 for
-BN254) and Fr (8 limbs) of the library's curve.  Kernel names are matched
-in either template form the library
-has used: `binop_kernel<FqTraits, 0>` and the older `binop_kernel<12, 0>`.
+BN254) and Fr (8 limbs; 24 for test_wide750) of the library's curve: the
+direct body (`binop_kernel`), whose loop holds one product; the staged
+body (`binop_staged_kernel`) and the grouped NTT stages
+(`cross_stages_kernel`, the kernel of the earlier one-stage
+`cross_stage_kernel`) are counted as kernels.  Kernel names are matched in
+either template form the library has used: `binop_kernel<FqTraits, 0>`
+and the older `binop_kernel<12, 0>`.
 
 Prints one JSON object (and writes it to `--out`).  Needs `cuobjdump`; runs
 no kernel and needs no GPU.
@@ -52,7 +56,11 @@ _KERNELS = {
     "field_inv (fr)": ("inv_kernelI8FrTraitsE", "inv_kernelILi8EE"),
     "field_inv (fq)": ("inv_kernelI8FqTraitsE", "inv_kernelILi12EE"),
     "ntt_block_stages": "block_stages_kernel",
-    "ntt_cross_stage": "cross_stage_kernel",
+    "ntt_cross_stages": ("cross_stages_kernel", "cross_stage_kernel"),
+    "field_binop (fr mul)": "binop_kernelI8FrTraitsLi0E",
+    "field_binop staged (fr mul)": "binop_staged_kernelI8FrTraitsLi0E",
+    "field_binop (fq mul)": "binop_kernelI8FqTraitsLi0E",
+    "field_binop staged (fq mul)": "binop_staged_kernelI8FqTraitsLi0E",
 }
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
 _NOT_MUL = (".MOV", ".SHL", ".IADD")

@@ -11,6 +11,10 @@ Builds the bench circuit (`DummyCircuit`, 2^log2 constraints, SRS sized by
   synchronizes the device, so a phase's seconds include its kernels);
 * one prove under `torch.profiler` (CPU and CUDA activity): device time by
   kernel name, their sum, and the device's busy share of the wall time;
+* the operand copies kernel 1's entry made in the spans' prove
+  (`cuda.BINOP_COPIES`: broadcasts its row maps cannot express, and
+  strided operands), and the entry's host microseconds a call at
+  [4096, L] (1,000 calls, no synchronization);
 * one more prove under `torch.profiler`, with the wrappers of the inversion
   and the NTT stage kernels noting each launch's shape: the device time of
   each of their launches in the prove, by kernel and shape (the profiler's
@@ -101,7 +105,7 @@ def _profiled_prove(torch, run) -> dict:
 
 # kernel -> a substring of its symbol in the profiler's device events
 _SHAPED = {"field_inv": "batch_inv_kernel", "ntt_block_stages": "block_stages_kernel",
-           "ntt_cross_stage": "cross_stage_kernel"}
+           "ntt_cross_stage": "cross_stages_kernel"}
 
 
 def _prove_launches_by_shape(torch, run) -> list:
@@ -123,22 +127,22 @@ def _prove_launches_by_shape(torch, run) -> list:
             return fn(*args, **kwargs)
         return wrapper
 
-    originals = (bi.inv_kernel, ntt.block_stages_kernel, ntt.cross_stage_kernel)
+    originals = (bi.inv_kernel, ntt.block_stages_kernel, ntt.cross_stages_kernel)
     bi.inv_kernel = noting("field_inv", bi.inv_kernel,
                            lambda ctx, x: f"{ctx.name} [{x.numel() // ctx.L}]")
     ntt.block_stages_kernel = noting(
         "ntt_block_stages", ntt.block_stages_kernel,
         lambda x, tw, log_b, log_n, scale=None:
             f"[{x.shape[0] >> log_n}, 2^{log_n}] {'inverse' if scale is not None else 'forward'}")
-    ntt.cross_stage_kernel = noting("ntt_cross_stage", ntt.cross_stage_kernel,
-                                    lambda x, tw, s: f"[{x.shape[0]}] stage {s}")
+    ntt.cross_stages_kernel = noting("ntt_cross_stage", ntt.cross_stages_kernel,
+                                     lambda x, tw, s0, s1: f"[{x.shape[0]}] stages {s0}-{s1 - 1}")
     try:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof, contextlib.redirect_stdout(io.StringIO()):
             run()
             torch.cuda.synchronize()
     finally:
-        bi.inv_kernel, ntt.block_stages_kernel, ntt.cross_stage_kernel = originals
+        bi.inv_kernel, ntt.block_stages_kernel, ntt.cross_stages_kernel = originals
     device = {k: [] for k in _SHAPED}
     for ev in sorted(prof.events(), key=lambda e: e.time_range.start):
         if getattr(ev, "device_type", None) != DeviceType.CUDA:
@@ -160,17 +164,19 @@ def _prove_launches_by_shape(torch, run) -> list:
 
 
 # kernel label -> substrings of its symbol in the profiler's device events
-# (either template form the kernels have had: <FrTraits, 0> or <8, 0>)
+# (either template form the kernels have had: <FrTraits, 0> or <8, 0>; the
+# binop's direct and staged bodies)
+_FR_MUL = ("binop_kernel<FrTraits, 0>", "binop_staged_kernel<FrTraits, 0>", "binop_kernel<8, 0>")
 _KERNEL_SYMBOLS = {
-    "field_binop (fr mul)": ("binop_kernel<FrTraits, 0>", "binop_kernel<8, 0>"),
+    "field_binop (fr mul)": _FR_MUL,
     # kernel 7 of the TPU package: an entry into kernel 1's Fr product
-    "mont_mul ([4096, 16], kernel 7)": ("binop_kernel<FrTraits, 0>", "binop_kernel<8, 0>"),
+    "mont_mul ([4096, 16], kernel 7)": _FR_MUL,
     "field_inv (fr)": ("inv_kernel<FrTraits>", "inv_kernel<8>"),
     "field_inv (fr, 1 element)": ("inv_kernel<FrTraits>", "inv_kernel<8>"),
     "field_inv (fq, 1 element)": ("inv_kernel<FqTraits>", "inv_kernel<12>"),
     "field_inv (fq, 25 x 2^16)": ("inv_kernel<FqTraits>", "inv_kernel<12>"),
     "ntt_block_stages": ("block_stages_kernel",),
-    "ntt_cross_stage": ("cross_stage_kernel",),
+    "ntt_cross_stages (every stage past the block)": ("cross_stages_kernel", "cross_stage_kernel"),
     "g1_add (2^16 points)": ("::add_kernel",),
     "g1_add (1539 points, the scans)": ("::add_kernel",),
     "g1_double (2^16 points)": ("::double_kernel",),
@@ -237,7 +243,8 @@ def _kernel_device_times(torch, reps: int = 20) -> dict:
         "field_inv (fq, 1 element)": lambda: bi.inv_kernel(fq.CTX, fq_table[5:6]),
         "field_inv (fq, 25 x 2^16)": lambda: bi.inv_kernel(fq.CTX, fq_table),
         "ntt_block_stages": lambda: ntt.block_stages_kernel(x, tw, ntt.BLOCK_LOG2, log_t),
-        "ntt_cross_stage": lambda: ntt.cross_stage_kernel(x, tw, log_t - 1),
+        "ntt_cross_stages (every stage past the block)": lambda: [
+            ntt.cross_stages_kernel(x, tw, s0, s1) for s0, s1 in ntt.cross_groups(log_t, ntt.BLOCK_LOG2)],
         "g1_add (2^16 points)": lambda: curve.add_kernel(p, q),
         "g1_add (1539 points, the scans)": lambda: curve.add_kernel(*scans),
         "g1_double (2^16 points)": lambda: curve.double_kernel(p),
@@ -273,6 +280,28 @@ def _ahp_kernel_device_times(torch, K: int, reps: int = 20) -> dict:
     symbols = {label: _KERNEL_SYMBOLS["field_inv (fr)" if "inv" in label else "field_binop (fr mul)"]
                for label in calls}
     return _device_times(torch, calls, reps, symbols)
+
+
+def _binop_host_us(torch, calls: int = 1000) -> dict:
+    """Host microseconds a call of kernel 1's entry (`bigint.binop_kernel`,
+    Fr mul) at [4096, L]: `calls` calls with no synchronization between."""
+    import numpy as np
+
+    from chip_smoke import random_elements
+    from marlin_tpu_torch.ops import bigint as bi
+    from marlin_tpu_torch.ops import fr
+
+    rng = np.random.default_rng(4)
+    a, b = (torch.as_tensor(random_elements(np, rng, fr.CTX, 4096), device="cuda") for _ in range(2))
+    for _ in range(10):
+        bi.binop_kernel("mul", fr.CTX, a, b)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(calls):
+        bi.binop_kernel("mul", fr.CTX, a, b)
+    us = (time.perf_counter() - t) / calls * 1e6
+    torch.cuda.synchronize()
+    return {"shape": f"[4096, {fr.L}]", "calls": calls, "host_us_per_call": us}
 
 
 def _device_times(torch, calls: dict, reps: int, symbols: dict | None = None) -> dict:
@@ -320,6 +349,8 @@ def ahp_main(torch, log2: int) -> dict:
     rec["steps"] = run_ahp(torch, "cuda", log2, index=idx)
     rec["launches_per_run"] = dict(cuda.LAUNCHES)
     rec["binop_launches_per_run"] = {f"{f}.{k}": v for (f, k), v in cuda.BINOP_LAUNCHES.items()}
+    rec["binop_copies_per_run"] = dict(cuda.BINOP_COPIES)
+    rec["binop_entry"] = _binop_host_us(torch)
     rec["zero_evals"] = rec["steps"]["zero_evals"]
     try:
         rec.update(_profiled_prove(torch, lambda: run_ahp(torch, "cuda", log2, index=idx)))
@@ -390,6 +421,8 @@ def main() -> int:
     profiling.enable(False)
     rec["launches_per_prove"] = dict(cuda.LAUNCHES)
     rec["binop_launches_per_prove"] = {f"{f}.{k}": v for (f, k), v in cuda.BINOP_LAUNCHES.items()}
+    rec["binop_copies_per_prove"] = dict(cuda.BINOP_COPIES)
+    rec["binop_entry"] = _binop_host_us(torch)
 
     try:
         rec.update(_profiled_prove(torch, lambda: Marlin.prove(pk, circ, rng, device="cuda")))
