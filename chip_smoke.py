@@ -64,7 +64,10 @@ Phases, each printing one line of JSON:
    package's host-int check of the same powers; the loaded keys prove
    main's bytes, which the loaded verifier key accepts; a limb >= 2^16, a
    non-affine Z, a residue >= q, an off-curve power, a flipped G2
-   coordinate and a commitment off the curve each raise ValueError;
+   coordinate and a commitment off the curve each raise ValueError; then
+   the loaded lean key proves main's bytes with the table's window width
+   at MARLIN_TPU_FIXED_C = 12 and at its default (10), a first and a
+   steady prove each, with the table's MB and the commit spans of each;
 11. sharded — the 2^14 prove under a mesh of four shards (`mesh=`: four
    cards where the machine has them, else the one card four times) with
    main's bytes, launching kernels 1, 2, 3(a), 4, 5 and 6 at shard shapes
@@ -73,7 +76,18 @@ Phases, each printing one line of JSON:
    prove; a 2^16 four-step NTT (both variants, forward and inverse) and the
    three MSM bodies (point shards at 2^16 over 4, window blocks at 2^12
    over 4, the ladder at 2^12 over 8) equal to the single-device results;
-12. bn254, synthetic_lowadic, bls12_377 — each curve in a process of its
+12. distributed — the same over a mesh spanning two processes
+   (`--dist-rank`, `multihost.init_distributed` on a file store): dcn = 2
+   ranks x ici = 2 shards, each rank on cards 2r and 2r+1 where the
+   machine has four, on card r twice where it has two or three (NCCL),
+   and both on card 0 twice where it has one (gloo, through host
+   memory); each rank loads phase serial's archives and proves from
+   main's rng state with main's bytes (which main's verifier key
+   accepts), launching every kernel of phase sharded and no host MSM, a
+   first and a steady prove; the 2^16 four-step NTTs and the three MSM
+   bodies across the ranks equal each rank's single-device results; the
+   backend, the exchanges' count and bytes, and the phase's seconds;
+13. bn254, synthetic_lowadic, bls12_377 — each curve in a process of its
    own (`--curve`, with `MARLIN_TPU_CURVE` set; the build phase compiled its
    library beside BLS12-381's): its main path on the card (`DummyCircuit`
    at 2^14, at 2^11 for BLS12-377: setup with the G1
@@ -90,7 +104,7 @@ Phases, each printing one line of JSON:
    BLS12-377's main proof at 2^11); and for BN254 a MarlinSonic prove at
    2^11; and its SRS, lean prover key and verifier key round-tripped as in
    phase serial (no full key, no tamper cases);
-13. test_wide750 — a 750-bit field with no curve (24-word Fr, no Fq, no
+14. test_wide750 — a 750-bit field with no curve (24-word Fr, no Fq, no
    G1), in a process of its own like the curves above (its library holds
    the field and NTT kernels only, and refuses an Fq call): its AHP at
    2^14 on the card as tests/test_wide750.py drives it (`run_ahp`: index,
@@ -179,6 +193,8 @@ REPEATED_N = 1 << 14  # points of the msm phase's repeated-scalar job
 # kernel 6 at the 2^14 prove's largest classic MSMs (65,534-65,535 points)
 COMBINE_C, COMBINE_W = 10, 26
 DEV = "cuda"
+# the runs' files: the archives, the CPU reference proofs, the ranks' store and records
+SMOKE_DIR = os.path.join(ROOT, "marlin_tpu_torch", "build", "smoke")
 
 RECORDS: list = []
 
@@ -1675,6 +1691,7 @@ def serial_roundtrip(torch, np, state: dict, label: str, tamper: bool) -> dict:
         require(proof.to_bytes() == state["proof"], f"{label}: the proof from the loaded {name} differs from main's")
     require(Marlin.verify(vk2, state["public"], proof, copy.deepcopy(state["rng"]), device=DEV),
             f"{label}: the loaded verifier key rejects the proof")
+    state["loaded_lean_pk"] = keys["lean"]
     # the power check alone: on the card (two host reads of flags) and in host ints
     rec["check_card_ms"] = time_ms(torch, lambda: serial._validate_powers_on_curve(srs.powers_of_g, "srs"),
                                    reps=5, warmup=1)
@@ -1729,11 +1746,65 @@ def serial_roundtrip(torch, np, state: dict, label: str, tamper: bool) -> dict:
 def phase_serial(torch, np, main_rec: dict, state: dict) -> dict:
     """Phase `serial`: the 2^14 main path's archives round-trip on the card
     (`serial_roundtrip`, with the tamper cases), beside main's setup and
-    index seconds."""
+    index seconds; then the loaded lean key proves under the table's window
+    widths (`window_width_proves`)."""
     rec = serial_roundtrip(torch, np, state, "bls12_381", tamper=True)
     rec.update(main_setup_s=main_rec["setup_s"], main_index_s=main_rec["index_s"])
     rec["load_s"] = rec["load_srs_s"] + rec["load_pk_s"] + rec["load_vk_s"]
+    rec["window_widths"] = window_width_proves(torch, state, main_rec)
     return rec
+
+
+# the table's window width under MARLIN_TPU_FIXED_C beside the default (c = 10 at 2^16 powers)
+FIXED_C_CASES = ("12", None)
+
+
+def window_width_proves(torch, state: dict, main_rec: dict) -> dict:
+    """The loaded lean key proves main's bytes with the table's window
+    width set by MARLIN_TPU_FIXED_C (12) and by default: for each, the
+    first prove (which builds that width's table) and a steady one, whose
+    commit spans are recorded beside the table's MB; main's commit spans
+    beside them."""
+    from marlin_tpu_torch.ops import msm
+    from marlin_tpu_torch.snark import kzg
+    from marlin_tpu_torch.snark.marlin import Marlin
+    from marlin_tpu_torch.utils import profiling
+
+    pk = state["loaded_lean_pk"]
+    n_powers = pk.committer_key.pp.powers_of_g[0].shape[0]
+    old = os.environ.pop("MARLIN_TPU_FIXED_C", None)
+    out = {"main_commit_spans_s": {k: v for k, v in main_rec["rounds_s"].items() if k.startswith("Committing")}}
+    try:
+        for fixed in FIXED_C_CASES:
+            if fixed is None:
+                os.environ.pop("MARLIN_TPU_FIXED_C", None)
+            else:
+                os.environ["MARLIN_TPU_FIXED_C"] = fixed
+            rec = {"c": msm._fixed_c(n_powers), "table_mb": kzg.msm_table_mb(n_powers)}
+            for run in ("first", "steady"):
+                profiling.enable(True)
+                profiling.collect()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    proof = Marlin.prove(pk, state["circ"], copy.deepcopy(state["rng"]), device=DEV)
+                torch.cuda.synchronize()
+                rec[f"{run}_prove_s"] = time.perf_counter() - t
+                spans = profiling.collect()
+                profiling.enable(False)
+                require(proof.to_bytes() == state["proof"],
+                        f"serial: the prove at MARLIN_TPU_FIXED_C={fixed} differs from main's")
+            rec["commit_spans_s"] = {sp["name"]: sp["seconds"] for sp in spans if sp["name"].startswith("Committing")}
+            require(kzg._ensure_msm_table(pk.committer_key.pp).c == rec["c"],
+                    f"serial: the table of MARLIN_TPU_FIXED_C={fixed} has another width")
+            out[f"c{rec['c']}"] = rec
+    finally:
+        profiling.enable(False)
+        if old is None:
+            os.environ.pop("MARLIN_TPU_FIXED_C", None)
+        else:
+            os.environ["MARLIN_TPU_FIXED_C"] = old
+    return out
 
 
 def mesh_of(torch, k: int):
@@ -1860,6 +1931,222 @@ def phase_sharded(torch, np, state: dict) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase distributed: the mesh across processes.  DIST_WORLD rank processes
+# (`--dist-rank`), each of DIST_SHARDS shards, so the mesh is dcn x ici =
+# DIST_WORLD x DIST_SHARDS, the four shards of phase sharded.  They meet on
+# a file store under DIST_DIR and read main's keys from phase serial's
+# archives and main's circuit and rng state from DIST_DIR/spec.json.
+DIST_WORLD = 2
+DIST_SHARDS = 2
+DIST_TIMEOUT_S = 300  # the ranks' process-group timeout: a dead rank makes the other raise
+DIST_LIMIT_S = 600  # the phase's limit on the rank processes
+DIST_DIR = os.path.join(SMOKE_DIR, "distributed")
+
+
+def dist_layout(count: int) -> list:
+    """Each rank's devices on a machine of `count` cards: four or more, rank
+    r holds cards 2r and 2r+1; two or three, card r twice; one, both ranks
+    hold card 0 twice (then the layout takes gloo, `backend_for`)."""
+    if count >= DIST_WORLD * DIST_SHARDS:
+        return [[f"cuda:{DIST_SHARDS * r + i}" for i in range(DIST_SHARDS)] for r in range(DIST_WORLD)]
+    if count >= DIST_WORLD:
+        return [[f"cuda:{r}"] * DIST_SHARDS for r in range(DIST_WORLD)]
+    return [["cuda:0"] * DIST_SHARDS for _ in range(DIST_WORLD)]
+
+
+def _wait_ranks(procs: list, limit_s: float) -> list:
+    """Wait for every rank process; once one fails or the limit passes, kill
+    the others -> their return codes."""
+    deadline = time.monotonic() + limit_s
+    while any(p.poll() is None for p in procs):
+        if time.monotonic() > deadline or any(p.returncode not in (None, 0) for p in procs):
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            break
+        time.sleep(0.2)
+    return [p.returncode for p in procs]
+
+
+def phase_distributed(torch, state: dict, sharded_rec: dict) -> dict:
+    """Phase `distributed`: the 2^14 prove over a mesh spanning DIST_WORLD
+    processes.  Each rank proves from phase serial's archives and main's rng
+    state with main's bytes (which main's verifier key accepts), launching
+    every kernel of SHARD_KERNELS and no host MSM, and holds the 2^16
+    four-step NTTs and the three MSM bodies across the ranks against its
+    own single-device results (`dist_rank_main`).  The backend is the
+    layout's (`multihost.backend_for`)."""
+    import socket
+
+    from marlin_tpu_torch.parallel.multihost import backend_for
+    from marlin_tpu_torch.snark.data_structures import Proof
+    from marlin_tpu_torch.snark.marlin import Marlin
+
+    t0 = time.perf_counter()
+    os.makedirs(DIST_DIR, exist_ok=True)
+    for name in os.listdir(DIST_DIR):
+        os.remove(os.path.join(DIST_DIR, name))
+    layout = dist_layout(torch.cuda.device_count())
+    spec = {"layout": layout, "store": os.path.join(DIST_DIR, "store"), "log2": MAIN_LOG2,
+            "a": state["circ"].a, "b": state["circ"].b, "rng_state": state["rng"]._gen.bit_generator.state}
+    with open(os.path.join(DIST_DIR, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    env = dict(os.environ, MARLIN_TPU_CURVE="bls12_381")
+    procs, logs = [], []
+    for r in range(DIST_WORLD):
+        logs.append(open(os.path.join(DIST_DIR, f"rank{r}.log"), "w"))
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-rank", str(r),
+                                       "--out", os.path.join(DIST_DIR, f"rank{r}.json")],
+                                      cwd=ROOT, env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+    try:
+        rcs = _wait_ranks(procs, DIST_LIMIT_S)
+    finally:
+        for f in logs:
+            f.close()
+    ranks = []
+    for r, rc in enumerate(rcs):
+        path = os.path.join(DIST_DIR, f"rank{r}.json")
+        rank_rec = json.load(open(path)) if os.path.exists(path) else {}
+        if rc != 0:
+            log = open(os.path.join(DIST_DIR, f"rank{r}.log")).read()
+            require(False, f"distributed: rank {r} failed (rc {rc}): {rank_rec.get('error')}\n{log[-3000:]}")
+        ranks.append(rank_rec)
+    want_backend = backend_for([(socket.gethostname(), devs) for devs in layout])
+    for r, rr in enumerate(ranks):
+        require(bytes.fromhex(rr["proof"]) == state["proof"], f"distributed: rank {r}'s proof differs from main's")
+        require(Marlin.verify(state["vk"], state["public"], Proof.from_bytes(bytes.fromhex(rr["proof"])),
+                              copy.deepcopy(state["rng"]), device=DEV),
+                f"distributed: main's verifier key rejects rank {r}'s proof")
+        require(rr["steady_equal"], f"distributed: rank {r}'s steady prove differs from its first")
+        for k in SHARD_KERNELS:
+            require(rr["launches"].get(k, 0) > 0, f"distributed: rank {r} launched no {k} in its prove")
+        require(rr["host_msm_calls"] == 0, f"distributed: rank {r} called the host MSM {rr['host_msm_calls']} times")
+        require(all(v["equal"] for v in rr["ntt"].values()), f"distributed: rank {r}'s NTTs differ: {rr['ntt']}")
+        require(all(v["equal"] and v["spill"] == 0 for v in rr["msm_bodies"].values()),
+                f"distributed: rank {r}'s MSM bodies differ: {rr['msm_bodies']}")
+        require(rr["backend"] == want_backend, f"distributed: rank {r} ran {rr['backend']}, the layout takes "
+                f"{want_backend}")
+    rec = {"layout": layout, "backend": ranks[0]["backend"], "exchange": ranks[0]["route"],
+           "devices": [rr["devices"] for rr in ranks], "mesh": ranks[0]["mesh"],
+           "prove_s": [{"first": rr["first_prove_s"], "steady": rr["steady_prove_s"]} for rr in ranks],
+           "one_process_sharded_steady_s": sharded_rec["steady_prove_s"]["sharded"],
+           "single_device_steady_s": sharded_rec["steady_prove_s"]["single"],
+           "prove_exchanges": [rr["prove_exchanges"] for rr in ranks],
+           "prove_launches": [rr["launches"] for rr in ranks],
+           "exact_reruns": [rr["exact_reruns"] for rr in ranks],
+           "ntt": ranks[0]["ntt"], "msm_bodies": ranks[0]["msm_bodies"],
+           "rank_s": [rr["seconds"] for rr in ranks], "bytes_equal": True, "verifies": True}
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def dist_rank_main(rank: int, out: str) -> int:
+    """`--dist-rank R --out PATH`: rank R of phase distributed, its record
+    to PATH."""
+    import datetime
+
+    import torch
+
+    spec = json.load(open(os.path.join(DIST_DIR, "spec.json")))
+    rec = {"rank": rank}
+    t0 = time.perf_counter()
+    try:
+        from marlin_tpu_torch.ops import cuda, fr, msm, ntt
+        from marlin_tpu_torch.ops import curve_device as cd
+        from marlin_tpu_torch.parallel import collectives, msm_sharded, multihost, ntt_sharded
+        from marlin_tpu_torch.parallel.multihost import axis_devices
+        from marlin_tpu_torch.snark import serial
+        from marlin_tpu_torch.snark.marlin import Marlin
+        from marlin_tpu_torch.utils.rand import ZkRng
+
+        require(torch.cuda.is_available(), "no CUDA device")
+        devices = [torch.device(d) for d in spec["layout"][rank]]
+        home = devices[0]
+        torch.cuda.set_device(home)
+        cuda.build()  # the library the parent's build phase made
+        multihost.init_distributed(devices=devices, init_method=f"file://{spec['store']}", rank=rank,
+                                   world_size=DIST_WORLD, timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+        mesh = multihost.make_mesh()
+        rec.update(devices=[str(d) for d in devices], backend=multihost.backend(),
+                   mesh=[str(d) for d in mesh.devices.flat], mesh_ranks=mesh.ranks.tolist())
+        d = os.path.join(SMOKE_DIR, "serial_bls12_381")
+        srs = serial.load_srs(os.path.join(d, "srs.npz"), device=home)
+        pk = serial.load_index_pk(os.path.join(d, "lean.npz"), srs=srs, device=home)
+        circ = DummyCircuit(spec["a"], spec["b"], num_variables=10, num_constraints=1 << spec["log2"])
+
+        def prove():
+            rng = ZkRng(0)
+            rng._gen.bit_generator.state = spec["rng_state"]  # main's state at its prove
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                proof = Marlin.prove(pk, circ, rng, device=home, mesh=mesh)
+            torch.cuda.synchronize()
+            return proof.to_bytes().hex(), time.perf_counter() - t
+
+        reruns = []
+        exact = msm.msm_pippenger
+
+        def counting_exact(*args, **kwargs):
+            reruns.append(bool(kwargs.get("exact")))
+            return exact(*args, **kwargs)
+
+        cuda.reset_launches()
+        collectives.reset_exchanges()
+        msm.msm_pippenger = counting_exact
+        try:
+            with counted_msm_calls() as seen:
+                blob, rec["first_prove_s"] = prove()
+        finally:
+            msm.msm_pippenger = exact
+        torch.cuda.synchronize()
+        rec.update(proof=blob, launches={k: v for k, v in cuda.LAUNCHES.items() if v},
+                   prove_exchanges=dict(collectives.EXCHANGES), host_msm_calls=seen["host_calls"],
+                   exact_reruns=sum(reruns))
+        blob2, rec["steady_prove_s"] = prove()
+        rec["steady_equal"] = blob2 == blob
+
+        n = SHARD_NTT_N
+        x = fr.from_canonical_limbs(ZkRng(300).rand_fr_limbs(n), home)
+        rec["route"] = collectives.route(x)
+        ntts = {}
+        for inverse in (False, True):
+            want = ntt.transform(x, inverse)
+            for name, fn in (("4step", ntt_sharded.ntt_4step), ("resident", ntt_sharded.ntt_4step_resident)):
+                got = fn(x, mesh, inverse=inverse)
+                ntts[f"{name}_{'inv' if inverse else 'fwd'}"] = {
+                    "equal": bool(torch.equal(got, want)),
+                    "ms": time_ms(torch, lambda: fn(x, mesh, inverse=inverse), reps=5, warmup=1)}
+        rec["ntt"] = ntts
+
+        powers = pk.committer_key.pp.powers_of_g
+        bodies = {}
+        for body, size, k in SHARD_MSM_BODIES:
+            # a mesh of k shards: each rank holds its card k / DIST_WORLD times (every rank calls make_mesh)
+            m = mesh if k == DIST_WORLD * DIST_SHARDS else multihost.make_mesh(devices=[home] * (k // DIST_WORLD))
+            pts = tuple(c[:size] for c in powers)
+            s = fr.from_canonical_limbs(ZkRng(400 + k + size).rand_fr_limbs(size), home)
+            want = cd.to_affine_ints(msm.msm(pts, s))
+            got, spill = msm_sharded.msm_sharded_core(pts, s, m)
+            bodies[body] = {"n": size, "shards": len(axis_devices(m, None)), "equal": cd.to_affine_ints(got) == want,
+                            "spill": int(spill),
+                            "ms": time_ms(torch, lambda: msm_sharded.msm_sharded_core(pts, s, m), reps=3, warmup=1)}
+        rec["msm_bodies"] = bodies
+        rec["exchanges"] = dict(collectives.EXCHANGES)
+        multihost.shutdown()
+    except Exception as e:
+        import traceback
+
+        traceback.print_exc()
+        rec["error"] = f"{type(e).__name__}: {e}"
+    finally:
+        rec["seconds"] = time.perf_counter() - t0
+        _write(out, rec)
+    return 1 if "error" in rec else 0
+
+
+# --------------------------------------------------------------------------
 # the other curves.  The curve is chosen once a process (MARLIN_TPU_CURVE,
 # fields/active.py), so each runs in a process of its own: `--curve NAME`
 # runs that curve's phases, `--cpu-proof` its CPU reference proof.  The
@@ -1884,7 +2171,6 @@ WIDE = "test_wide750"
 WIDE_KERNELS = ("field_binop", "field_inv", "ntt_block_stages", "ntt_cross_stage")
 # synthetic_lowadic's mixed transforms at n1 = 3, 9 and 27 beside the prove's
 MIXED_EXTRA_SHAPES = ((3 << 11,), (9 << 11,), (27 << 11,))
-SMOKE_DIR = os.path.join(ROOT, "marlin_tpu_torch", "build", "smoke")
 
 
 @contextlib.contextmanager
@@ -2545,6 +2831,7 @@ def main() -> int:
     ap.add_argument("--curve", choices=sorted(CURVES), help=argparse.SUPPRESS)
     ap.add_argument("--cpu-proof", choices=sorted(CURVES), help=argparse.SUPPRESS)
     ap.add_argument("--cpu-proof-file", help=argparse.SUPPRESS)
+    ap.add_argument("--dist-rank", type=int, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     if not os.path.isdir(os.path.join(ROOT, "marlin_tpu_torch")):
@@ -2555,6 +2842,8 @@ def main() -> int:
         return cpu_proof_main(args.cpu_proof, args.out)
     if args.curve:
         return curve_process_main(args.curve, args.cpu_proof_file, args.out)
+    if args.dist_rank is not None:
+        return dist_rank_main(args.dist_rank, args.out)
     os.environ["MARLIN_TPU_CURVE"] = "bls12_381"  # this process's phases; the others run their own
     import numpy as np
     import torch
@@ -2606,7 +2895,11 @@ def main() -> int:
         emit({"phase": "serial", **phase_serial(torch, np, main_rec, state)})
 
         phase = "sharded"
-        emit({"phase": "sharded", **phase_sharded(torch, np, state)})
+        sharded_rec = phase_sharded(torch, np, state)
+        emit({"phase": "sharded", **sharded_rec})
+
+        phase = "distributed"
+        emit({"phase": "distributed", **phase_distributed(torch, state, sharded_rec)})
 
         for curve in CURVES:
             phase = curve

@@ -73,6 +73,10 @@ class ModCtx:
         return int_to_limbs(self.modulus, self.L)
 
     @functools.cached_property
+    def nprime_limbs(self) -> np.ndarray:
+        return int_to_limbs(self.nprime, self.L)
+
+    @functools.cached_property
     def r2_limbs(self) -> np.ndarray:
         return int_to_limbs(self.r2, self.L)
 
@@ -105,8 +109,9 @@ class ModCtx:
         return np.asarray(out, dtype=np.uint32)
 
     def const(self, which: str, device) -> torch.Tensor:
-        """[L] int32 limbs of N ("n"), R^2 mod N ("r2"), R mod N ("one") or
-        1 ("canonical_one") on `device`, cached per device."""
+        """[L] int32 limbs of N ("n"), -N^-1 mod R ("nprime"), R^2 mod N
+        ("r2"), R mod N ("one") or 1 ("canonical_one") on `device`, cached
+        per device."""
         return _const(self, which, torch.device(device))
 
 
@@ -114,6 +119,7 @@ class ModCtx:
 def _const(ctx: ModCtx, which: str, device: torch.device) -> torch.Tensor:
     arr = {
         "n": ctx.n_limbs,
+        "nprime": ctx.nprime_limbs,
         "r2": ctx.r2_limbs,
         "one": ctx.one_limbs,
         "canonical_one": ctx.canonical_one_limbs,
@@ -154,14 +160,32 @@ def normalize(t: torch.Tensor, out_len: int | None = None) -> torch.Tensor:
         t[..., 1:] += carry
 
 
-def _cond_sub_n(ctx: ModCtx, v: torch.Tensor) -> torch.Tensor:
-    """v (normalized int64, [.., M >= L], 0 <= v < 2N) -> v mod N, [.., L]."""
-    n = ctx.const("n", v.device)
+def mul_wide(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Schoolbook product of normalized [.., L] limbs -> redundant [.., 2L]
+    int64 limbs, the JAX package's: each 32-bit partial product adds its
+    low half at position i + j and its high half at i + j + 1 (limbs
+    < 2L·2^16)."""
+    L = x.shape[-1]
+    if y.shape[-1] != L:
+        raise ValueError(f"mul_wide: {L} and {y.shape[-1]} limbs")
+    shape = torch.broadcast_shapes(x.shape[:-1], y.shape[:-1])
+    x64, y64 = x.to(torch.int64), y.to(torch.int64)
+    acc = torch.zeros((*shape, 2 * L), dtype=torch.int64, device=x.device)
+    for i in range(L):
+        p = x64[..., i : i + 1] * y64
+        acc[..., i : i + L] += p & LIMB_MASK
+        acc[..., i + 1 : i + L + 1] += p >> LIMB_BITS
+    return acc
+
+
+def cond_sub_modulus(ctx: ModCtx, v: torch.Tensor) -> torch.Tensor:
+    """v (normalized int64, [.., M >= L], 0 <= v < 2N) -> v mod N, [.., M]."""
+    v = v.to(torch.int64)
     d = v.clone()
-    d[..., : ctx.L] -= n
+    d[..., : ctx.L] -= ctx.const("n", v.device)
     d = normalize(d)
     keep = d[..., -1] < 0
-    return torch.where(keep[..., None], v, d)[..., : ctx.L]
+    return torch.where(keep[..., None], v, d)
 
 
 # --------------------------------------------------------------------------
@@ -193,13 +217,13 @@ def mont_mul(ctx: ModCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         win += m[..., None] * n
         acc[..., i + 1] += acc[..., i] >> LIMB_BITS
     out = normalize(acc[..., L:])  # value < 2N
-    return _cond_sub_n(ctx, out).to(LIMB_DTYPE)
+    return cond_sub_modulus(ctx, out)[..., :L].to(LIMB_DTYPE)
 
 
 def add_mod(ctx: ModCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     (a64, b64), _ = _prep(ctx, a, b)
     s = normalize(a64 + b64, ctx.L + 1)
-    return _cond_sub_n(ctx, s).to(LIMB_DTYPE)
+    return cond_sub_modulus(ctx, s)[..., : ctx.L].to(LIMB_DTYPE)
 
 
 def sub_mod(ctx: ModCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -214,15 +238,40 @@ def neg_mod(ctx: ModCtx, a: torch.Tensor) -> torch.Tensor:
     return sub_mod(ctx, torch.zeros_like(a), a)
 
 
-def pow_const(ctx: ModCtx, x: torch.Tensor, exp_bits) -> torch.Tensor:
-    """Plain x^e (Montgomery in/out) for a static exponent given as MSB-first
-    bits, by left-to-right square-and-multiply."""
+def mont_reduce(ctx: ModCtx, t: torch.Tensor) -> torch.Tensor:
+    """Plain SOS Montgomery reduction: T (normalized [.., 2L], T < N·R) ->
+    T·R^-1 mod N, canonical [.., L]."""
+    L = ctx.L
+    t = t.to(torch.int64)
+    m = normalize(mul_wide(t[..., :L], ctx.const("nprime", t.device)))[..., :L]  # (T mod R)·N' mod R
+    u = normalize(mul_wide(m, ctx.const("n", t.device)) + t, 2 * L)  # low L limbs 0
+    return cond_sub_modulus(ctx, u[..., L:]).to(LIMB_DTYPE)
+
+
+def mont_sqr(ctx: ModCtx, a: torch.Tensor) -> torch.Tensor:
+    return mont_mul(ctx, a, a)
+
+
+def pow_const(ctx: ModCtx, x: torch.Tensor, exp_bits, mul=None) -> torch.Tensor:
+    """x^e (Montgomery in/out) for a static exponent given as MSB-first
+    bits, by left-to-right square-and-multiply; `mul` is the product
+    (default: the plain `mont_mul`)."""
+    if mul is None:
+        mul = functools.partial(mont_mul, ctx)
     acc = ctx.const("one", x.device).expand_as(x)
     for bit in np.asarray(exp_bits).tolist():
-        acc = mont_mul(ctx, acc, acc)
+        acc = mul(acc, acc)
         if bit:
-            acc = mont_mul(ctx, acc, x)
+            acc = mul(acc, x)
     return acc.contiguous()
+
+
+def is_zero(ctx: ModCtx, x: torch.Tensor) -> torch.Tensor:
+    return (x == 0).all(-1)
+
+
+def eq(ctx: ModCtx, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return (a == b).all(-1)
 
 
 def inv_mod(ctx: ModCtx, x: torch.Tensor) -> torch.Tensor:

@@ -34,12 +34,28 @@ def mul(a, b):
     return _routing.binop("mul", CTX, a, b)
 
 
+def sqr(a):
+    return mul(a, a)
+
+
 def inv(a):
     return _routing.inv(CTX, a)
 
 
 def neg(a):
     return sub(torch.zeros_like(a), a)
+
+
+def is_zero(a):
+    return bi.is_zero(CTX, a)
+
+
+def eq(a, b):
+    return bi.eq(CTX, a, b)
+
+
+def select(c, a, b):
+    return bi.select(c, a, b)
 
 
 def zeros(shape=(), device="cpu"):

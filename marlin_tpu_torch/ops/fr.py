@@ -43,6 +43,18 @@ def inv(a):
     return _routing.inv(CTX, a)
 
 
+def neg(a):
+    return sub(torch.zeros_like(a), a)
+
+
+def is_zero(a):
+    return bi.is_zero(CTX, a)
+
+
+def eq(a, b):
+    return bi.eq(CTX, a, b)
+
+
 def select(c, a, b):
     return bi.select(c, a, b)
 
@@ -61,6 +73,12 @@ def zeros(shape=(), device="cpu"):
 
 def ones(shape=(), device="cpu"):
     return CTX.const("one", device).expand(*shape, L).clone()
+
+
+def pow_const(x, e: int):
+    """x^e (Montgomery in/out) for a static exponent e >= 0."""
+    nbits = max(e.bit_length(), 1)
+    return _routing.pow_const(CTX, x, [(e >> (nbits - 1 - i)) & 1 for i in range(nbits)])
 
 
 # --- host <-> device conversions (Montgomery form on device) ----------------

@@ -50,6 +50,7 @@ failed).  The public `msm()` checks the flags of its own call.
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
@@ -94,6 +95,7 @@ def _sharded_msm_or_none(points: cd.Point, scalars_mont: torch.Tensor):
 
     ctx = pctx.current()
     n = points[0].shape[0]
+    # a size: the same on every rank of a mesh spanning processes
     if ctx is None or n < pctx.MSM_MIN_SHARDED:
         return None
     from ..parallel.msm_sharded import msm_sharded
@@ -157,6 +159,7 @@ def msm_many(powers: cd.Point, jobs: list, exact: bool = False, table=None) -> l
     def points_of(off, scal):
         return tuple(powers[i][off : off + scal.shape[0]] for i in range(3))
 
+    # sizes: every rank of a mesh spanning processes takes the same route
     big = sum(scal.shape[0] for _, scal in jobs) >= _PIPPENGER_MIN
 
     def one_job(off, scal):
@@ -232,7 +235,11 @@ class FixedBaseTable:
 
 def _fixed_c(n_base: int) -> int:
     """Signed-window width of the table path: 10 up to 2^17 powers, then
-    wider (the JAX package's measured choice, msm.py:539-561)."""
+    wider (the JAX package's measured choice, msm.py:539-561), unless
+    MARLIN_TPU_FIXED_C sets it (read at every call, as there)."""
+    env = os.environ.get("MARLIN_TPU_FIXED_C")
+    if env:
+        return int(env)
     return min(13, max(10, 10 + (n_base.bit_length() - 17) * 3 // 2))
 
 

@@ -333,6 +333,7 @@ def _sharded_or_none(x: torch.Tensor, inverse: bool):
 
     ctx = pctx.current()
     n = x.shape[0]
+    # shapes only: the same on every rank of a mesh spanning processes
     if ctx is None or x.dim() != 2 or n < pctx.NTT_MIN_SHARDED or n & (n - 1):
         return None
     n1 = 1 << (_log2(n) // 2)
@@ -346,7 +347,8 @@ def _sharded_or_none(x: torch.Tensor, inverse: bool):
 
 def _batchable(n: int, count: int) -> bool:
     """Batch several transforms into one set of launches: a power of two,
-    and no mesh that would shard this size (ntt.py:267)."""
+    and no mesh that would shard this size (ntt.py:267).  Sizes only, so
+    every rank of a mesh spanning processes decides alike."""
     from ..parallel import context as pctx
 
     return count > 1 and not (n & (n - 1)) and (pctx.current() is None or n < pctx.NTT_MIN_SHARDED)

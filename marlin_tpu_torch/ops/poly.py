@@ -102,6 +102,10 @@ def evaluate(p: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     return evaluate_batch(p[None], z)[0]
 
 
+def evaluate_many(p: torch.Tensor, zs: list) -> list:
+    return [evaluate(p, z) for z in zs]
+
+
 def evaluate_batch(coeffs: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """Evaluate a stack of (padded) polynomials at one point.
 
@@ -126,3 +130,10 @@ def div_by_linear(p: torch.Tensor, z: torch.Tensor, zinv: torch.Tensor | None = 
     zinv_pows = powers(zinv[0], n)
     w = fr.mul(fr.mul(s_shift, zinv_pows), zinv)
     return w[: n - 1]
+
+
+def degree(p: torch.Tensor) -> int:
+    """Actual degree, -1 for the zero polynomial (a host read; for asserts
+    and tests)."""
+    nz = (p != 0).any(-1).nonzero()
+    return int(nz[-1]) if nz.numel() else -1

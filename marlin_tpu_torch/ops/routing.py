@@ -30,3 +30,11 @@ def inv(ctx, x: torch.Tensor) -> torch.Tensor:
     if use_cuda(x):
         return bi.inv_kernel(ctx, x)
     return bi.inv_mod(ctx, x)
+
+
+def pow_const(ctx, x: torch.Tensor, exp_bits) -> torch.Tensor:
+    """x^e by square-and-multiply (`bigint.pow_const`), each product on
+    kernel 1 for a CUDA tensor, the plain product for a CPU tensor."""
+    if use_cuda(x):
+        return bi.pow_const(ctx, x, exp_bits, lambda a, b: bi.binop_kernel("mul", ctx, a, b))
+    return bi.pow_const(ctx, x, exp_bits)

@@ -7,7 +7,10 @@ entry points — `ops.ntt.ntt/intt/ntt_many/intt_many` and
 (parallel/ntt_sharded.py) and the distributed Pippenger
 (parallel/msm_sharded.py).  Protocol code is untouched: the same
 `Marlin.prove` runs on one device or over a mesh (`mesh=`), with the same
-proof bytes.  A sharded result comes back to the caller's device.
+proof bytes.  A sharded result comes back to the caller's device.  On a
+mesh spanning processes every rank runs the same prove: the routers'
+size checks read shapes, which are the same on every rank, so every rank
+takes the same route and joins the same collectives.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from __future__ import annotations
 from contextlib import contextmanager
 from dataclasses import dataclass
 
-from .multihost import Mesh, axis_devices
+from .multihost import Mesh, axis_devices, require_group
 
 # route only sizes where the exchanges between shards can pay off
 NTT_MIN_SHARDED = 1 << 12
@@ -50,9 +53,11 @@ def current() -> ParallelContext | None:
 def use_mesh(mesh: Mesh, axis: str | tuple | None = None):
     """Run the enclosed block with sharded NTT/MSM over `mesh`'s `axis`
     (default: all of its axes, flattened; the JAX package's default is the
-    axis "x" of its one-axis test meshes)."""
+    axis "x" of its one-axis test meshes).  A mesh spanning processes needs
+    their group (`multihost.init_distributed`)."""
     global _current
     axis_devices(mesh, axis)  # the axis must exist
+    require_group(mesh)
     prev = _current
     _current = ParallelContext(mesh, axis)
     try:

@@ -19,7 +19,11 @@ device would hold (n_local = n / D):
 
 Each shard's tensors live on its device, and each shard takes the route
 of that device, under `on_device` of its own: the kernels on the card,
-their plain versions on the CPU.
+their plain versions on the CPU.  The partial sums, window sums and
+canonical scalars are joined by all-gathers and the spill counts summed
+(parallel/collectives.py): moves between devices in one process,
+collectives between processes, where each process computes only its own
+positions' shards and every process ends with the same result.
 The Pippenger bodies count the entries their capped buckets left out and
 the lanes whose fast fold met P == Q; `msm_sharded` reruns the exact
 single-device `msm_pippenger` when the count is not 0, never the router
@@ -37,6 +41,7 @@ from ..ops import curve
 from ..ops import curve_device as cd
 from ..ops import fq, fr
 from ..ops import msm as msm_mod
+from . import collectives
 from .multihost import on_device, shard_devices
 
 FR_BITS = P.FR_BITS
@@ -45,21 +50,29 @@ FR_BITS = P.FR_BITS
 WINDOW_BLOCK_MAX = 1 << 14
 
 
-def _gather(parts: list, device) -> cd.Point:
-    return tuple(torch.cat([p[i].to(device) for p in parts]) for i in range(3))
+def _gather(sh, parts: dict, home) -> cd.Point:
+    """The parts ({position: Jacobian batch}, one shape) of every position,
+    joined in flat order on `home`: one all-gather."""
+    stacked = collectives.all_gather(sh, {k: torch.stack(p) for k, p in parts.items()}, home)
+    return tuple(torch.cat([s[i] for s in stacked]) for i in range(3))
 
 
-def _shards(points: cd.Point, scalars: torch.Tensor, devs: list):
-    """Per device: (its slice of the points, of the scalars), moved there."""
-    n_local = points[0].shape[0] // len(devs)
-    for k, dev in enumerate(devs):
+def _shards(points: cd.Point, scalars: torch.Tensor, sh) -> dict:
+    """Per local position: (its slice of the points, of the scalars), moved
+    to its device."""
+    n_local = points[0].shape[0] // len(sh.devices)
+    out = {}
+    for k in sh.local:
         sl = slice(k * n_local, (k + 1) * n_local)
-        yield tuple(c[sl].to(dev) for c in points), scalars[sl].to(dev)
+        dev = sh.devices[k]
+        out[k] = tuple(c[sl].to(dev) for c in points), scalars[sl].to(dev)
+    return out
 
 
 def _affine(points: cd.Point) -> cd.Point:
     """The points in affine form (Z in {0, 1}), as the Pippenger folds
-    take them: one normalization when any point is off it."""
+    take them: one normalization when any point is off it.  Every rank
+    holds the same points, so `off.any()` reads the same on every rank."""
     one = fq.CTX.const("one", points[2].device)
     off = ~((points[2] == one).all(-1) | cd.is_identity(points))
     return cd.normalize_batch(points) if bool(off.any()) else points
@@ -71,44 +84,51 @@ def msm_sharded_core(points: cd.Point, scalars_mont: torch.Tensor, mesh, axis=No
     The count is always 0 on the ladder body.  `axis` names the data axis
     (a name, a tuple of names flattened into one, or None for all of the
     mesh's axes); n must divide over its devices except on the
-    window-sharded body, which replicates the points."""
+    window-sharded body, which replicates the points.  On a mesh spanning
+    processes each rank computes its own positions' shards, and the point
+    and the count (summed over every rank) are the same on every rank."""
     home = points[0].device
-    devs = shard_devices(mesh, axis, home)
-    d = len(devs)
+    sh = shard_devices(mesh, axis, home)
+    d = len(sh.devices)
     n = points[0].shape[0]
     n_local = n // d
     zero = torch.zeros((), dtype=torch.int64, device=home)
 
+    # n, and so the body, is the same on every rank: the same call on the same inputs
     if n_local < WINDOW_BLOCK_MAX and n_local >= msm_mod._PIPPENGER_MIN:
         points = _affine(points)
         c = min(13, max(6, n.bit_length() - 6))
         num_windows = -(-FR_BITS // c)
         wpd = -(-num_windows // d)
-        canonical = []
-        for s, dev in zip(torch.tensor_split(scalars_mont, d), devs):
+        # each position converts an equal slice of the scalars (zero-padded
+        # to a multiple of d), and the canonical limbs are gathered
+        padded = torch.nn.functional.pad(scalars_mont, (0, 0, 0, -n % d))
+        slices = padded.tensor_split(d)
+        canonical = {}
+        for k in sh.local:
+            dev = sh.devices[k]
             with on_device(dev):
-                canonical.append(bi.from_mont(fr.CTX, s.to(dev)).to(home))
-        canonical = torch.cat(canonical)
-        parts, spill = [], zero
-        for k, dev in enumerate(devs):
+                canonical[k] = bi.from_mont(fr.CTX, slices[k].to(dev))
+        canonical = torch.cat(collectives.all_gather(sh, canonical, home))[:n]
+        parts, spills = {}, {}
+        for k in sh.local:
+            dev = sh.devices[k]
             with on_device(dev):
-                stacked, s = msm_mod.pippenger_device_window_block(
+                parts[k], spills[k] = msm_mod.pippenger_device_window_block(
                     tuple(t.to(dev) for t in points), canonical.to(dev), c, wpd, k * wpd
                 )
-            parts.append(stacked)
-            spill = spill + s.to(home)
-        windows = tuple(t[:num_windows] for t in _gather(parts, home))
-        return curve.combine_windows(windows, c), spill
+        windows = tuple(t[:num_windows] for t in _gather(sh, parts, home))
+        return curve.combine_windows(windows, c), collectives.sum_counts(sh, spills, home)
 
     if n % d:
         raise ValueError(f"{n} points do not divide over {d} devices")
     if n_local < msm_mod._PIPPENGER_MIN:
         # the shards that share a device ladder in one launch, each shard
         # reduced on its own: the partial sums are the per-shard ones
-        parts = [None] * d
-        shards = list(_shards(points, scalars_mont, devs))
-        for dev in dict.fromkeys(devs):
-            ks = [k for k in range(d) if devs[k] == dev]
+        parts = {}
+        shards = _shards(points, scalars_mont, sh)
+        for dev in dict.fromkeys(sh.devices[k] for k in sh.local):
+            ks = [k for k in sh.local if sh.devices[k] == dev]
             with on_device(dev):
                 pts = tuple(torch.cat([shards[k][0][i] for k in ks]) for i in range(3))
                 canonical = bi.from_mont(fr.CTX, torch.cat([shards[k][1] for k in ks]))
@@ -116,17 +136,15 @@ def msm_sharded_core(points: cd.Point, scalars_mont: torch.Tensor, mesh, axis=No
                 sums = cd.tree_reduce_add(tuple(m.reshape(len(ks), n_local, -1).transpose(0, 1) for m in muls))
             for j, k in enumerate(ks):
                 parts[k] = tuple(t[0, j : j + 1] for t in sums)
-        return cd.tree_reduce_add(_gather(parts, home)), zero
+        return cd.tree_reduce_add(_gather(sh, parts, home)), zero
 
     points = _affine(points)
     c = min(13, max(6, n_local.bit_length() - 6))
-    parts, spill = [], zero
-    for (pts, s), dev in zip(_shards(points, scalars_mont, devs), devs):
-        with on_device(dev):
-            part, sp = msm_mod.pippenger_device(pts, bi.from_mont(fr.CTX, s), c)
-        parts.append(part)
-        spill = spill + sp.to(home)
-    return cd.tree_reduce_add(_gather(parts, home)), spill
+    parts, spills = {}, {}
+    for k, (pts, s) in _shards(points, scalars_mont, sh).items():
+        with on_device(sh.devices[k]):
+            parts[k], spills[k] = msm_mod.pippenger_device(pts, bi.from_mont(fr.CTX, s), c)
+    return cd.tree_reduce_add(_gather(sh, parts, home)), collectives.sum_counts(sh, spills, home)
 
 
 def msm_sharded(points: cd.Point, scalars_mont: torch.Tensor, mesh, axis=None) -> cd.Point:
@@ -134,7 +152,8 @@ def msm_sharded(points: cd.Point, scalars_mont: torch.Tensor, mesh, axis=None) -
     on the caller's device; exact.  A spill reruns the single-device
     `msm_pippenger` with exact=True: it is taken precisely when a bucket
     overflowed or a fast fold degenerated, so the rerun must not take the
-    fast fold again."""
+    fast fold again.  The count is summed over every rank of a mesh
+    spanning processes, so every rank reruns, or none does."""
     pt, spill = msm_sharded_core(points, scalars_mont, mesh, axis)
     if int(spill) != 0:
         return msm_mod.msm_pippenger(points, scalars_mont, exact=True)

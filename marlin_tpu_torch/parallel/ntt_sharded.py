@@ -14,13 +14,16 @@ Both n1 and n2 must divide by the device count D.
 The row and column transforms are the port's radix-2 path (ops/ntt.py:
 `_plan(n, inverse)`, kernel 3 on the card, its plain twins on the CPU),
 run as one batch per device, each under `on_device` of its own; the
-twiddles are kernel-1 Fr products; a transpose is slices moved between
-the shards' devices.  An inverse transform's n^-1 is the two stages'
-n2^-1 · n1^-1.
+twiddles are kernel-1 Fr products; a transpose is one all-to-all
+(parallel/collectives.py): slices moved between the shards' devices in
+one process, a collective between processes, where each process
+transforms only the rows and columns of its own shards.  An inverse
+transform's n^-1 is the two stages' n2^-1 · n1^-1.
 
-The port's prover is not mesh-aware, so both variants return the result
-on the caller's device (the JAX `ntt_4step` returns it sharded over k2,
-`ntt_4step_resident` block-sharded): the limbs are the same.
+The port's prover is not mesh-aware, so both variants end in one
+all-gather and return the result on the caller's device, on every rank
+(the JAX `ntt_4step` returns it sharded over k2, `ntt_4step_resident`
+block-sharded): the limbs are the same.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 from ..fields import active as P
 from ..ops import fr, ntt
 from ..ops.limbs import ints_to_limbs
+from . import collectives
 from .multihost import on_device, shard_devices
 
 R = P.R_MODULUS
@@ -81,24 +85,25 @@ def ntt_4step(coeffs: torch.Tensor, mesh, axis=None, inverse: bool = False) -> t
     """NTT (or inverse NTT) of a [n, L] vector over the devices of `mesh`'s
     `axis` (a name, a tuple of names flattened into one data axis, or None
     for all of the mesh's axes) -> evaluations in natural order on the
-    caller's device."""
-    devs = shard_devices(mesh, axis, coeffs.device)
-    d = len(devs)
+    caller's device (on every rank of a mesh spanning processes)."""
+    home = coeffs.device
+    sh = shard_devices(mesh, axis, home)
+    d = len(sh.devices)
     n = coeffs.shape[0]
     n1, n2 = split_sizes(n, d)
-    r, c = n1 // d, n2 // d
+    r = n1 // d
     mat = coeffs.reshape(n2, n1, fr.L).transpose(0, 1)  # A[i1, i2]
-    rows = []
-    for k, dev in enumerate(devs):
+    rows = {}
+    for k in sh.local:
+        dev = sh.devices[k]
         with on_device(dev):
             a = _along_rows(mat[k * r : (k + 1) * r].to(dev), inverse)  # B[i1, k2]
-            rows.append(fr.mul(a, _twiddle_tensor(n1, n2, inverse, dev)[k * r : (k + 1) * r]))
-    cols = []
-    for j, dev in enumerate(devs):
-        with on_device(dev):
-            b = torch.cat([a[:, j * c : (j + 1) * c].to(dev) for a in rows])  # [n1, c, L]
-            cols.append(_along_rows(b.transpose(0, 1), inverse).transpose(0, 1))  # O[k1, k2 block]
-    return torch.cat([t.to(coeffs.device) for t in cols], dim=1).reshape(n, fr.L)
+            rows[k] = fr.mul(a, _twiddle_tensor(n1, n2, inverse, dev)[k * r : (k + 1) * r])
+    cols = {}
+    for j, b in collectives.all_to_all(sh, rows).items():  # the transpose: [n1, k2 block j, L]
+        with on_device(sh.devices[j]):
+            cols[j] = _along_rows(b.transpose(0, 1), inverse).transpose(0, 1)  # O[k1, k2 block]
+    return torch.cat(collectives.all_gather(sh, cols, home), dim=1).reshape(n, fr.L)
 
 
 def ntt_sharded_reference(coeffs: torch.Tensor, inverse: bool = False) -> torch.Tensor:
@@ -125,30 +130,28 @@ def ntt_4step_resident(coeffs: torch.Tensor, mesh, axis=None, inverse: bool = Fa
     """Four-step NTT of a [n, L] vector whose exchanges keep flat block
     sharding: block k of the input goes to the k-th device of `mesh`'s
     `axis` (the JAX package's `block_sharding` placement).  Returns the
-    evaluations in natural order on the caller's device."""
+    evaluations in natural order on the caller's device (on every rank of a
+    mesh spanning processes: one all-gather of the k1 blocks)."""
     home = coeffs.device
-    devs = shard_devices(mesh, axis, home)
-    d = len(devs)
+    sh = shard_devices(mesh, axis, home)
+    d = len(sh.devices)
     n = coeffs.shape[0]
     n1, n2 = split_sizes(n, d)
     r1, r2 = n1 // d, n2 // d
-    blocks = [b.to(dev).reshape(r2, n1, fr.L) for b, dev in zip(torch.chunk(coeffs, d), devs)]  # A[i2 block, i1]
+    chunks = torch.chunk(coeffs, d)
+    blocks = {k: chunks[k].to(sh.devices[k]).reshape(r2, n1, fr.L) for k in sh.local}  # A[i2 block, i1]
     # 1-3: complete i2 on each i1 block, NTTs along i2, twiddle
-    stage = []
-    for j, dev in enumerate(devs):
+    stage = {}
+    for j, a in collectives.all_to_all(sh, blocks).items():  # [n2, r1, L]
+        dev = sh.devices[j]
         with on_device(dev):
-            a = torch.cat([b[:, j * r1 : (j + 1) * r1].to(dev) for b in blocks])  # [n2, r1, L]
             a = _along_rows(a.transpose(0, 1), inverse)  # B[i1 block, k2]
-            stage.append(fr.mul(a, _twiddle_tensor(n1, n2, inverse, dev)[j * r1 : (j + 1) * r1]))
+            stage[j] = fr.mul(a, _twiddle_tensor(n1, n2, inverse, dev)[j * r1 : (j + 1) * r1])
     # 4-5: complete i1 on each k2 block, NTTs along i1
-    stage2 = []
-    for j, dev in enumerate(devs):
-        with on_device(dev):
-            a = torch.cat([s[:, j * r2 : (j + 1) * r2].to(dev) for s in stage])  # [n1, r2, L]
-            stage2.append(_along_rows(a.transpose(0, 1), inverse))  # X[k2 block, k1]
+    stage2 = {}
+    for j, a in collectives.all_to_all(sh, stage).items():  # [n1, r2, L]
+        with on_device(sh.devices[j]):
+            stage2[j] = _along_rows(a.transpose(0, 1), inverse)  # X[k2 block, k1]
     # 6: to k1 blocks: output block j holds rows k1 of block j, all k2
-    out = []
-    for j in range(d):
-        x = torch.cat([s[:, j * r1 : (j + 1) * r1].to(home) for s in stage2])  # [n2, r1, L]
-        out.append(x.transpose(0, 1))  # [r1, n2, L]
-    return torch.cat(out).reshape(n, fr.L)
+    out = {j: x.transpose(0, 1) for j, x in collectives.all_to_all(sh, stage2).items()}  # [r1, n2, L]
+    return torch.cat(collectives.all_gather(sh, out, home)).reshape(n, fr.L)

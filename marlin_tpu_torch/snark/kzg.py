@@ -284,21 +284,24 @@ def _ensure_msm_table(pp: UniversalParams):
     on the CPU, whose MSMs take the host route, and where the classic
     Pippenger serves instead: with MARLIN_TPU_MSM_TABLE=0, or when the table
     would exceed MARLIN_TPU_MSM_TABLE_MB (default 2400).  Both are read at
-    every call.  None while a mesh is active: `msm_many` passes the table
-    over then, and runs the sharded MSM."""
+    every call, as is the window width (`msm._fixed_c`, which
+    MARLIN_TPU_FIXED_C sets): a cached table of another width is rebuilt.
+    None while a mesh is active: `msm_many` passes the table over then, and
+    runs the sharded MSM."""
     from ..parallel import context as pctx
 
     if (pp.device.type != "cuda" or os.environ.get("MARLIN_TPU_MSM_TABLE") == "0"
             or pctx.current() is not None):
         return None
-    table = getattr(pp, "_msm_table", None)
-    if table is not None:
-        return table
     n = pp.powers_of_g[0].shape[0]
+    c = msm._fixed_c(n)
+    table = getattr(pp, "_msm_table", None)
+    if table is not None and table.c == c:
+        return table
     if msm_table_mb(n) > float(os.environ.get("MARLIN_TPU_MSM_TABLE_MB", "2400")):
         return None
     with profiling.span("Precomputing fixed-base MSM table"):
-        pp._msm_table = msm.build_fixed_table(pp.powers_of_g, msm._fixed_c(n))
+        pp._msm_table = msm.build_fixed_table(pp.powers_of_g, c)
     return pp._msm_table
 
 

@@ -137,7 +137,11 @@ class Marlin:
         `device`'s type), every round NTT and commit MSM large enough runs
         sharded over the mesh's devices (the four-step NTT and the
         distributed Pippenger, marlin_tpu/snark/marlin.py:114-128); the
-        proof bytes are the single-device ones."""
+        proof bytes are the single-device ones.  A mesh spanning processes
+        (`multihost.make_mesh` after `init_distributed`) takes the same
+        call on every rank, with the same keys, circuit and rng state, and
+        every rank returns the same proof; without the process group it is
+        refused."""
         dev = resolve_device(device)
         _same_device(index_pk.index.device, dev, "the proving key")
         if mesh is not None:

@@ -194,6 +194,42 @@ def test_cuda_routing_counts_launches(dev):
     assert cuda.LAUNCHES["ntt_block_stages"] == 1 and cuda.LAUNCHES["ntt_cross_stage"] == 1
 
 
+@pytest.mark.parametrize("field", ["fr", "fq"])
+def test_field_helpers_on_the_card_match_plain(dev, field):
+    """The helpers of ops/fr.py and ops/fq.py on CUDA tensors (kernel 1
+    where they multiply or subtract) against their plain versions on the
+    same limbs on the CPU."""
+    mod = {"fr": fr, "fq": fq}[field]
+    a = _elements(mod.CTX, 3000, 61, dev)
+    b = a.flip(0).clone()
+    b[7] = a[7]
+    cond = torch.arange(3000, device=dev) % 3 == 0
+    cuda.reset_launches()
+    cpu = [t.cpu() for t in (a, b, cond)]
+    assert torch.equal(mod.neg(a).cpu(), mod.neg(cpu[0]))
+    assert torch.equal(mod.sqr(a).cpu(), bi.mont_mul(mod.CTX, cpu[0], cpu[0]))
+    assert torch.equal(mod.is_zero(a).cpu(), bi.is_zero(mod.CTX, cpu[0]))
+    assert torch.equal(mod.eq(a, b).cpu(), bi.eq(mod.CTX, cpu[0], cpu[1]))
+    assert torch.equal(mod.select(cond, a, b).cpu(), bi.select(cpu[2], cpu[0], cpu[1]))
+    if field == "fr":
+        for e in (0, 5, fr.CTX.modulus - 2):
+            bits = [int(c) for c in bin(e)[2:]]
+            assert torch.equal(fr.pow_const(a[:64], e).cpu(), bi.pow_const(fr.CTX, cpu[0][:64], bits))
+    assert cuda.LAUNCHES["field_binop"] > 0
+
+
+def test_poly_helpers_on_the_card_match_plain(dev):
+    from marlin_tpu_torch.ops import poly
+
+    p = _elements(fr.CTX, 1000, 62, dev)
+    zs = list(_elements(fr.CTX, 3, 63, dev).unbind(0))
+    got = poly.evaluate_many(p, zs)
+    want = poly.evaluate_many(p.cpu(), [z.cpu() for z in zs])
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    padded = torch.cat([p, fr.zeros((5,), dev)])
+    assert poly.degree(padded) == poly.degree(padded.cpu()) == 999
+
+
 def _curve_points(n, seed, dev):
     from marlin_tpu_torch.fields import bls12_381 as P
     from marlin_tpu_torch.fields import host_curve as hc

@@ -46,6 +46,7 @@ def test_package_imports_neither_jax_nor_marlin_tpu():
         "import marlin_tpu_torch.snark.serial\n"
         "import marlin_tpu_torch.parallel.context, marlin_tpu_torch.parallel.multihost\n"
         "import marlin_tpu_torch.parallel.ntt_sharded, marlin_tpu_torch.parallel.msm_sharded\n"
+        "import marlin_tpu_torch.parallel.collectives\n"
         "import importlib.util\n"
         "spec = importlib.util.spec_from_file_location('pregen', 'tools/torch_pregen_caches.py')\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"

@@ -19,9 +19,9 @@ earlier commit of it), builds its kernels there, and measures:
   earlier tree makes of a broadcast operand; and, in a tree whose kernel 1
   has two bodies, Fr and Fq mul at 2^16 on each (`staged=`);
 * kernel 3(b), every stage past the 2^10 block of a transform, at 2^14,
-  2^16 and a batch of two 2^16 (at 24 words: 2^13, and 55,296 as 27 inner
-  transforms of 2^11): card ms and device ms of all its launches, and
-  their count.
+  2^16, a batch of two 2^16 and 2^18 (its stages split over two groups)
+  (at 24 words: 2^13, and 55,296 as 27 inner transforms of 2^11): card
+  ms and device ms of all its launches, and their count.
 
 Works on a tree whose 3(b) runs one stage a launch (`cross_stage_kernel`)
 or a group a launch (`cross_stages_kernel`).  Prints one JSON object with
@@ -155,7 +155,7 @@ def main() -> int:
     rec["binop"] = binop
 
     cross = {}
-    shapes = [(1 << 13, 1), (55296, 27)] if wide else [(1 << 14, 1), (1 << 16, 1), (1 << 17, 2)]
+    shapes = [(1 << 13, 1), (55296, 27)] if wide else [(1 << 14, 1), (1 << 16, 1), (1 << 17, 2), (1 << 18, 1)]
     for total, batch in shapes:
         n = total // batch
         if n & (n - 1):
