@@ -22,6 +22,7 @@ import torch
 
 from ..fields import active as P
 from ..ops import fr, ntt, poly, sparse
+from ..utils import profiling
 from ..utils.rand import ZkRng
 from . import ahp
 from .constraint_systems import (
@@ -84,9 +85,10 @@ def prover_init(index: Index, circuit) -> ProverState:
     """Reference src/ahp/prover.rs:211-306."""
     cs = ConstraintSystem(mode=SynthesisMode.PROVE, optimization_goal=OptimizationGoal.WEIGHT)
     circuit.generate_constraints(cs)
-    pad_input_for_indexer_and_prover(cs)
-    cs.finalize()
-    make_matrices_square(cs)
+    with profiling.span("R1CS::finalize"):
+        pad_input_for_indexer_and_prover(cs)
+        cs.finalize()
+        make_matrices_square(cs)
 
     info = index.index_info
     num_vars = cs.num_instance_variables + cs.num_witness_variables

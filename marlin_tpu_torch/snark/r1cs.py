@@ -43,6 +43,11 @@ SYMBOLIC = 3
 Variable = tuple[int, int]
 VAR_ONE: Variable = (ONE, 0)
 
+# The Weight goal's work, summed over its finalizes: the symbolic LCs it
+# resolved (row LCs among them), those it outlined, and the references to
+# symbolic LCs that it inlined.
+STATS = {"finalizes": 0, "lcs": 0, "outlined": 0, "inlined_terms": 0}
+
 
 def lc(*terms) -> list:
     """Build a linear combination: lc((coeff, var), var2, ...).
@@ -240,6 +245,10 @@ class ConstraintSystem:
             transformed[i] = flat
 
         self.lc_map = transformed
+        STATS["finalizes"] += 1
+        STATS["lcs"] += n
+        STATS["outlined"] += len(outlined)
+        STATS["inlined_terms"] += sum(num_times_used)
         # append the equality constraints: lc * 1 = w
         for flat, w_var in outlined:
             self.lc_map.append(list(flat))
